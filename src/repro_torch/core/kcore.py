@@ -1,0 +1,338 @@
+"""Distributed k-core decomposition — the paper's algorithm, in PyTorch.
+
+The port of ``repro.core.kcore`` for the paper's from-scratch decomposition.
+Montresor-style locality iteration: every vertex keeps a monotonically
+decreasing estimate, initialized to its degree; each round it recomputes
+
+    est'(u) = H( { min(est(v), est(u)) : v in adj(u) } )
+
+where H is the h-index operator, and "sends" its new value to all neighbors
+when it decreased. The fixpoint equals the exact core numbers (locality
+theorem, §II.B of the paper).
+
+This slice ports mode ``jacobi`` (paper-faithful synchronous rounds) with
+backend ``segment``, driven two ways: a host loop that reads each round's
+changed vector back (``kcore_decompose``), and a fused loop whose
+per-round bills stay on the device (``fused_convergence`` and
+``core/runtime.py``). Both iterate the superstep that ``core/dispatch.py``
+builds: on CUDA it runs the hand-written ``kcore_hindex`` and
+``segment_sum`` kernels, on the CPU their plain PyTorch versions. Cores and
+per-round ``MessageStats`` are bit-equal to the reference's in every mode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.messages import MessageStats
+from repro_torch.graph.structs import Graph, build_ell
+from repro_torch.kernels import _build
+from repro_torch.kernels.kcore_hindex.ref import hindex_rows_ref  # noqa: F401  (binary-search oracle)
+from repro_torch.kernels.segment_sum.ops import segment_sum
+from repro_torch.obs import flight as _flight
+from repro_torch.obs import trace as _trace
+from repro_torch.platform import resolve_device
+
+# where ROADMAP.md queues what this slice does not port
+ROADMAP_OTHER_MODES = "ROADMAP.md Queue A item 4 (other static backends and modes)"
+
+
+# ---------------------------------------------------------------------- #
+# Config / result
+# ---------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class KCoreConfig:
+    mode: str = "jacobi"            # "jacobi" (block_gs: ROADMAP Queue A item 4)
+    backend: str = "segment"        # "segment" (ell, ell_pallas: item 4)
+    max_rounds: int | None = None   # None → n + 1 (the worst-case depth)
+    widths: tuple[int, ...] = (8, 32, 128, 512, 2048)   # ELL bucket widths
+    # run the round loop with its per-round bills kept on the device
+    # (core/runtime.py) instead of reading each round's changed vector back;
+    # accounting is bit-equal either way
+    fused: bool = False
+
+
+@dataclasses.dataclass
+class KCoreResult:
+    core: np.ndarray
+    rounds: int
+    converged: bool
+    stats: MessageStats
+    # kernel-library builds this decomposition caused (nvcc runs; 0 = every
+    # kernel was already built), and the wall they took
+    recompiles: int = 0
+    compile_s: float = 0.0
+    # per-phase wall breakdown (seconds): "stage" (ELL layout and host-to-
+    # device copies), then "converge" for the host loop, or the fused
+    # runtime's "device-converge" and "host-reconstruct"
+    phase_s: dict = dataclasses.field(default_factory=dict)
+    # which superstep ran: "kernel" (the CUDA kernels) or "torch" (their
+    # plain versions, on the CPU) — bills are bit-equal either way
+    dispatch: str = "torch"
+
+
+def _bs_iters(max_deg: int) -> int:
+    """Static binary-search iteration count covering estimates in [0, maxdeg]."""
+    return max(int(np.ceil(np.log2(max_deg + 1))) + 1, 1)
+
+
+# ---------------------------------------------------------------------- #
+# The masked Jacobi superstep — segment route
+# ---------------------------------------------------------------------- #
+
+def _hindex_by_bsearch(est, est_dst_masked, src, row_ptr, n_iters):
+    """Vectorized per-vertex h-index via binary search.
+
+    For every vertex u, finds max k in [0, est_u] with
+    |{arcs (u,v): est_v >= k}| >= k. Arcs are sorted by source with CSR
+    offsets ``row_ptr``; ``est_dst_masked`` must be 0 on dead arcs (so they
+    never count for k >= 1). The hit counts are segment sums.
+    """
+    lo = torch.zeros_like(est)
+    hi = est
+    for _ in range(n_iters):
+        mid = (lo + hi + 1) // 2
+        mid_src = mid.index_select(0, src)
+        hit = (est_dst_masked >= mid_src) & (mid_src > 0)
+        ok = segment_sum(hit.to(torch.int32), row_ptr) >= mid
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid - 1)
+    return lo
+
+
+def _receivers(changed, dst, row_ptr, arc_mask):
+    """Who receives a message next round: u such that a live neighbor
+    changed — a segment sum of ``changed[dst]`` over u's arcs."""
+    hit = changed.index_select(0, dst) & arc_mask
+    return segment_sum(hit.to(torch.int32), row_ptr) > 0
+
+
+def _finish_round(est, h, active, dst, row_ptr, arc_mask):
+    """Apply the h-index to the active vertices; bill senders and receivers."""
+    new_est = torch.where(active, h, est)
+    changed = new_est < est
+    return new_est, changed, _receivers(changed, dst, row_ptr, arc_mask)
+
+
+def masked_round_segment(est, src, dst, row_ptr, arc_mask, active, n_iters):
+    """One frontier-masked Jacobi superstep. Returns (new_est, changed, recv).
+
+    Only vertices with ``active`` True recompute their h-index; everyone else
+    keeps their estimate. With ``active`` all-True this is the paper's plain
+    synchronous superstep. The masked form is exact for the monotone
+    locality operator (an inactive vertex's inputs are unchanged).
+    """
+    est_dst = torch.where(arc_mask, est.index_select(0, dst), 0)
+    h = _hindex_by_bsearch(est, est_dst, src, row_ptr, n_iters)
+    return _finish_round(est, h, active, dst, row_ptr, arc_mask)
+
+
+# ---------------------------------------------------------------------- #
+# Fused convergence — bills stay on the device
+# ---------------------------------------------------------------------- #
+
+def _fused_loop(round_body, est, active, deg, max_rounds):
+    """Run ``round_body(est, active) -> (est', changed, recv)`` to the fixpoint.
+
+    The reference's ``lax.while_loop`` contract, driven from the host: per
+    executed round r three ``(max_rounds,)`` int32 device buffers receive
+    messages (Σ deg over changed vertices), the changed count and the
+    receiver count; the next frontier is this round's receivers. The host
+    reads one two-flag tensor per round (changed anything? receivers
+    left?), where the reference's loop tests the same on the device.
+
+    Returns ``(est', rounds, stopped, final_active, msgs_buf, changed_buf,
+    recv_buf)``: ``rounds`` counts every executed superstep including a
+    final unproductive one, ``stopped`` is True iff the loop exited on an
+    unproductive round, ``final_active`` is the exit frontier size.
+    """
+    zeros = torch.zeros(max_rounds, dtype=torch.int32, device=est.device)
+    mb, cb, rb = zeros, zeros.clone(), zeros.clone()
+    act, r, stop = active, 0, False
+    go = max_rounds > 0 and bool(act.any())
+    while go:
+        est_new, changed, recv = round_body(est, act)
+        mb[r] = torch.where(changed, deg, 0).sum()
+        cb[r] = changed.sum()
+        rb[r] = recv.sum()
+        flags = torch.stack([changed.any(), recv.any()]).cpu()
+        est, act, r = est_new, recv, r + 1
+        stop = not bool(flags[0])
+        go = not stop and r < max_rounds and bool(flags[1])
+    return est, r, stop, int(act.sum()), mb, cb, rb
+
+
+def fused_convergence(est, src, dst, row_ptr, arc_mask, active, deg,
+                      n_iters, max_rounds):
+    """Run masked Jacobi supersteps (segment route) to the fixpoint, with the
+    per-round stat buffers on the device. Same contract as the reference's
+    ``fused_convergence``; see ``_fused_loop``."""
+    def body(e, a):
+        return masked_round_segment(e, src, dst, row_ptr, arc_mask, a, n_iters)
+
+    return _fused_loop(body, est, active, deg, max_rounds)
+
+
+def _host_int64(buf: torch.Tensor, k: int) -> np.ndarray:
+    return buf[:k].cpu().numpy().astype(np.int64)
+
+
+def fused_round_stats(rounds, stopped, final_active,
+                      msgs_buf, changed_buf, recv_buf):
+    """Host-side reconstruction of per-round accounting from fused buffers.
+
+    Returns ``(k, msgs, changed, recv, converged)``: ``k`` is the number of
+    PRODUCTIVE rounds (the prefix whose changed count is non-zero — once a
+    round changes nothing the loop stops, so productive rounds are always a
+    prefix) and the three ``(k,)`` int64 arrays are exactly what the host
+    loop would have appended round by round.
+    """
+    rounds = int(rounds)
+    cb = _host_int64(changed_buf, rounds)
+    k = int((cb > 0).sum())
+    converged = bool(stopped) or int(final_active) == 0
+    return (k, _host_int64(msgs_buf, k), cb[:k], _host_int64(recv_buf, k),
+            converged)
+
+
+# ---------------------------------------------------------------------- #
+# Driver
+# ---------------------------------------------------------------------- #
+
+def kcore_decompose(g: Graph, config: KCoreConfig = KCoreConfig(), *,
+                    fused: bool | None = None,
+                    device: str | torch.device | None = None) -> KCoreResult:
+    """Run distributed k-core decomposition to the fixpoint on one device.
+
+    ``device`` defaults to CUDA and raises ``RuntimeError`` when there is
+    none; pass ``device="cpu"`` to run the plain PyTorch versions of the
+    kernels. Per-round message/active accounting follows the paper exactly
+    (see core/messages.py). ``fused=True`` (keyword override of
+    ``config.fused``) keeps the per-round bills on the device and
+    reconstructs them afterwards, bit-equal to the host loop.
+    """
+    dev = resolve_device(device)
+    if config.mode != "jacobi":
+        raise NotImplementedError(f"mode={config.mode!r} is not ported yet: {ROADMAP_OTHER_MODES}")
+    if config.backend != "segment":
+        raise NotImplementedError(
+            f"backend={config.backend!r} is not ported yet: {ROADMAP_OTHER_MODES}")
+    use_fused = config.fused if fused is None else fused
+    with _trace.span("kcore.decompose", n=g.n, m=g.m, mode=config.mode,
+                     backend=config.backend, fused=bool(use_fused),
+                     device=str(dev)) as _sp:
+        res = _decompose_body(g, config, use_fused, dev)
+        _sp.set(rounds=res.rounds, messages=res.stats.total_messages,
+                converged=res.converged, recompiles=res.recompiles,
+                compile_s=round(res.compile_s, 6), dispatch=res.dispatch)
+    return res
+
+
+def _decompose_body(g: Graph, config: KCoreConfig, use_fused: bool,
+                    dev: torch.device) -> KCoreResult:
+    from repro_torch.core import dispatch as _dispatch
+
+    builds0, bsecs0 = _build.build_count(), _build.build_seconds()
+    plan = _dispatch.resolve_plan(dev)
+    phase_s: dict = {}
+    n = g.n
+    if n == 0:
+        return KCoreResult(core=np.zeros(0, np.int32), rounds=0,
+                           converged=True,
+                           stats=MessageStats(*(np.zeros(0, np.int64),) * 3),
+                           dispatch=plan.kind)
+    n_iters = _bs_iters(g.max_deg)
+    max_rounds = config.max_rounds if config.max_rounds is not None else n + 1
+    deg64 = g.deg.astype(np.int64)
+
+    msgs = [int(deg64.sum())]             # round 0: degree broadcast = 2m
+    # active[r] = vertices recomputing in round r. Round 0: all (they all
+    # broadcast); round 1: every vertex that received the degree broadcast.
+    active = [n, int((g.deg > 0).sum())]
+    changed_counts = [n]
+
+    # flight recorder: one run per decomposition, round 0 = the degree
+    # broadcast. Disabled path = one attribute read; every est host copy
+    # and per-round clock below is guarded by rec.active.
+    rec = _flight.recorder()
+    if rec.active:
+        rec.start_run(
+            "static",
+            "fused" if use_fused else f"{config.mode}/{config.backend}",
+            n=n)
+        rec.record_round(active[0], msgs[0], changed_counts[0], est=g.deg)
+
+    # static fully-live adjacency + degree seed: the ELL h-index route is
+    # exact here (degree-0 vertices sit in no bucket and keep estimate 0)
+    t_stage = time.perf_counter()
+    ell = build_ell(g, widths=config.widths)
+
+    if use_fused:
+        from repro_torch.core.runtime import fused_converge_dense
+
+        phase_s["stage"] = time.perf_counter() - t_stage
+        # from-scratch seeding: est = degrees, frontier = every vertex.
+        # frontier1: the loop activates everyone but the accounting bills
+        # only (deg>0) receivers in round 1 — pass the accounting value so
+        # flight records match the host loop bit-for-bit
+        outcome = fused_converge_dense(
+            g.deg, np.ones(n, bool), g.src, g.dst,
+            np.ones(g.num_arcs, bool), g.deg,
+            n=n, n_iters=n_iters, max_rounds=max_rounds,
+            device=dev, ell=ell, frontier1=active[1])
+        rounds, converged = outcome.rounds, outcome.converged
+        msgs.extend(outcome.msgs.tolist())
+        changed_counts.extend(outcome.changed.tolist())
+        active.extend(outcome.recv.tolist())
+        core = outcome.est
+        phase_s["stage"] += outcome.stage_s
+        phase_s["device-converge"] = outcome.device_s
+        phase_s["host-reconstruct"] = outcome.reconstruct_s
+
+    else:
+        step = _dispatch.masked_round_program(n, n_iters, plan, g.src, g.dst, ell=ell)
+        est = torch.from_numpy(g.deg).to(dev)
+        amask = torch.ones(g.num_arcs, dtype=torch.bool, device=dev)
+        everyone = torch.ones(n, dtype=torch.bool, device=dev)
+        phase_s["stage"] = time.perf_counter() - t_stage
+        rounds, converged = 0, False
+        t_conv = time.perf_counter()
+        while rounds < max_rounds:
+            t_r = time.perf_counter() if rec.active else 0.0
+            with _trace.span("kcore.round", round=rounds) as rsp:
+                new_est, changed, recv = step(est, amask, everyone)
+                rounds += 1
+                ch_np = changed.cpu().numpy()
+                if not ch_np.any():
+                    converged = True
+                    break
+                msgs.append(int(deg64[ch_np].sum()))
+                changed_counts.append(int(ch_np.sum()))
+                active.append(int(recv.sum()))
+                rsp.set(messages=msgs[-1], changed=changed_counts[-1])
+                if rec.active:
+                    rec.record_round(
+                        active[rounds], msgs[-1], changed_counts[-1],
+                        est=new_est.cpu().numpy(), prev_est=est.cpu().numpy(),
+                        host_s=time.perf_counter() - t_r,
+                        dispatch=plan.kind)
+                est = new_est
+        phase_s["converge"] = time.perf_counter() - t_conv
+        core = est.cpu().numpy().astype(np.int32)
+
+    stats = MessageStats(
+        messages_per_round=np.asarray(msgs, np.int64),
+        active_per_round=np.asarray(active[: len(msgs)], np.int64),
+        changed_per_round=np.asarray(changed_counts[: len(msgs)], np.int64),
+    )
+    if rec.active:
+        rec.end_run(converged=converged, messages=int(stats.total_messages))
+    return KCoreResult(core=core, rounds=rounds, converged=converged,
+                       stats=stats,
+                       recompiles=_build.build_count() - builds0,
+                       compile_s=_build.build_seconds() - bsecs0,
+                       phase_s=phase_s, dispatch=plan.kind)

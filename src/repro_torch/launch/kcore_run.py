@@ -1,0 +1,180 @@
+"""The paper's experiment entry point, ported: k-core decomposition on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --scale 0.2
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph SPR --scale 1.0 --fused --json
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph chain --n 2000 --device cpu
+
+Prints the paper's measurement set: total messages, messages/active nodes
+per round, rounds to convergence, work bound, heartbeat-model overhead and
+the simulated-network runtime, plus validation against the BZ oracle. The
+JSON report keeps ``repro.launch.kcore_run``'s keys, so a run of each can be
+diffed field by field, and adds ``device``, the card's name.
+
+Runs on the CUDA card unless ``--device cpu`` is given (then the kernels'
+plain PyTorch versions run); with no card and no ``--device cpu`` it fails.
+``--fused`` keeps the per-round bills on the device (core/runtime.py),
+bit-equal to the host loop.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+_OTHER_MODES = "ROADMAP.md Queue A item 4 (other static backends and modes)"
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--graph", default="FC", help="SNAP abbrev (Table I) or chain/ba/er")
+    ap.add_argument("--scale", type=float, default=0.2)
+    ap.add_argument("--n", type=int, default=1000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mode", default="jacobi", choices=["jacobi", "block_gs"])
+    ap.add_argument("--backend", default="segment", choices=["segment", "ell", "ell_pallas"])
+    ap.add_argument(
+        "--fused",
+        action="store_true",
+        help="keep the per-round bills on the device and reconstruct them "
+        "afterwards (accounting bit-equal to the host loop)",
+    )
+    ap.add_argument(
+        "--device",
+        default="cuda",
+        choices=["cuda", "cpu"],
+        help="cuda (default) runs the CUDA kernels and fails without a card; "
+        "cpu runs their plain PyTorch versions",
+    )
+    ap.add_argument("--mesh", type=int, default=0, metavar="N", help="not ported yet")
+    ap.add_argument("--out-of-core", action="store_true", help="not ported yet")
+    ap.add_argument("--metrics", action="store_true", help="not ported yet")
+    ap.add_argument("--json", action="store_true")
+    ap.add_argument(
+        "--trace",
+        default=None,
+        metavar="OUT.json",
+        help="enable span tracing and export a Chrome trace_event JSON "
+        "(open in Perfetto / chrome://tracing)",
+    )
+    ap.add_argument(
+        "--flight",
+        default=None,
+        metavar="OUT.json",
+        help="enable the convergence flight recorder and dump the per-round ring as JSON",
+    )
+    args = ap.parse_args(argv)
+    # what this slice does not port, and the ROADMAP.md item that will
+    refused = [
+        (args.mode != "jacobi", f"--mode {args.mode}", _OTHER_MODES),
+        (args.backend != "segment", f"--backend {args.backend}", _OTHER_MODES),
+        (args.mesh, "--mesh", "ROADMAP.md Queue A item 10 (sharded and multi-process paths)"),
+        (args.out_of_core, "--out-of-core", "ROADMAP.md Queue A item 8 (out-of-core)"),
+        (args.metrics, "--metrics", "ROADMAP.md Queue A item 7 (serving, the CLIs, obs/metrics)"),
+    ]
+    for is_set, flag, item in refused:
+        if is_set:
+            ap.error(f"{flag} is not ported yet: {item}")
+    return args
+
+
+def build_graph(args, generators):
+    if args.graph == "chain":
+        return generators.chain(args.n)
+    if args.graph == "ba":
+        return generators.barabasi_albert(args.n, 4, seed=args.seed)
+    if args.graph == "er":
+        return generators.erdos_renyi(args.n, 4 * args.n, seed=args.seed)
+    return generators.snap_analogue(args.graph, scale=args.scale, seed=args.seed)
+
+
+def decompose_report(g, args, core_ref=None):
+    """Decompose ``g`` as ``args`` asks and build the report.
+
+    ``core_ref`` is the BZ oracle's answer when the caller already has it
+    (it is computed here otherwise). Returns ``(report, result)``.
+    """
+    import torch
+
+    from repro_torch.core.bz import bz_core_numbers
+    from repro_torch.core.cost_model import DATACENTER, INTERNET, TPU_POD, simulate_runtime
+    from repro_torch.core.kcore import KCoreConfig, kcore_decompose
+    from repro_torch.core.messages import heartbeat_overhead, work_bound
+    from repro_torch.platform import resolve_device
+
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    res = kcore_decompose(g, KCoreConfig(mode=args.mode, backend=args.backend),
+                          fused=args.fused, device=dev)
+    wall = time.perf_counter() - t0
+
+    ref = bz_core_numbers(g) if core_ref is None else core_ref
+    ok = bool((res.core == ref).all())
+    wb = work_bound(g, res.core)
+    hb = heartbeat_overhead(res.stats)
+    report = {
+        "graph": args.graph,
+        "n": g.n,
+        "m": g.m,
+        "avg_deg": round(g.avg_deg, 1),
+        "max_deg": g.max_deg,
+        "max_core": int(res.core.max()) if g.n else 0,
+        "mode": args.mode,
+        "backend": args.backend,
+        "fused": args.fused,
+        "dispatch": res.dispatch,
+        "mesh": 1,
+        "correct_vs_BZ": ok,
+        "rounds": res.rounds,
+        "converged": res.converged,
+        "total_messages": res.stats.total_messages,
+        "work_bound": wb,
+        "messages_over_bound": round(res.stats.total_messages / max(wb, 1), 3),
+        "messages_per_round": res.stats.messages_per_round.tolist()[:20],
+        "active_per_round": res.stats.active_per_round.tolist()[:20],
+        "heartbeats": hb["heartbeat_messages"],
+        "wall_s": round(wall, 2),
+        "recompiles": res.recompiles,
+        "compile_s": round(res.compile_s, 3),
+        "phase_s": {k: round(v, 4) for k, v in res.phase_s.items()},
+        "simulated_runtime_s": {
+            m.name: round(simulate_runtime(res.stats, m)["total_s"], 4)
+            for m in (INTERNET, DATACENTER, TPU_POD)
+        },
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
+    return report, res
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    from repro_torch.graph import generators
+    from repro_torch.obs import flight, trace
+
+    if args.trace:
+        trace.enable()
+    if args.flight:
+        flight.enable()
+
+    g = build_graph(args, generators)
+    report, _res = decompose_report(g, args)
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        for k, v in report.items():
+            print(f"{k}: {v}")
+    if args.trace:
+        trace.export(args.trace)
+        print(f"trace: {args.trace} ({len(trace.events())} events)")
+    if args.flight:
+        payload = flight.to_json()
+        with open(args.flight, "w") as f:
+            json.dump(payload, f)
+        print(f"flight: {args.flight} (runs={payload['runs']} "
+              f"rounds={payload['rounds_recorded']})")
+    if not report["correct_vs_BZ"]:
+        raise SystemExit("core numbers disagree with BZ oracle!")
+
+
+if __name__ == "__main__":
+    main()

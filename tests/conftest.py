@@ -13,3 +13,7 @@ repro.platform.configure_from_env()
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs an NVIDIA card; skipped where CUDA is absent")

@@ -1,0 +1,80 @@
+"""The port's ``kcore_run --device cpu --json`` against the JAX CLI.
+
+Both CLIs run as subprocesses on the same seeded graph; every accounting
+field of their JSON reports must be equal (timings, the dispatch name and
+the port's added ``device`` field are not accounting).
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ACCOUNTING = ("graph", "n", "m", "avg_deg", "max_deg", "max_core", "mode", "backend", "fused",
+              "mesh", "correct_vs_BZ", "rounds", "converged", "total_messages", "work_bound",
+              "messages_over_bound", "messages_per_round", "active_per_round", "heartbeats",
+              "simulated_runtime_s")
+
+
+def _run(module, *argv, cwd=ROOT):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, "-m", module, *argv], capture_output=True, text=True,
+                          env=env, cwd=cwd, timeout=300)
+
+
+def _report(out):
+    assert out.returncode == 0, out.stderr
+    text = out.stdout
+    return json.loads(text[text.index("{"):text.rindex("}") + 1])
+
+
+@pytest.mark.parametrize("argv", [
+    ("--graph", "FC", "--scale", "0.05", "--fused"),
+    ("--graph", "EEN", "--scale", "0.02"),
+    ("--graph", "chain", "--n", "300", "--fused"),
+], ids=["FC-fused", "EEN-host", "chain-fused"])
+def test_cli_report_equals_the_jax_cli(argv):
+    port = _report(_run("repro_torch.launch.kcore_run", *argv, "--device", "cpu", "--json"))
+    ref = _report(_run("repro.launch.kcore_run", *argv, "--json"))
+    assert {k: port[k] for k in ACCOUNTING} == {k: ref[k] for k in ACCOUNTING}
+    assert set(ref) <= set(port)
+    assert port["device"] == "cpu" and port["dispatch"] == "torch"
+
+
+def test_cli_trace_and_flight_outputs(tmp_path):
+    out = _run("repro_torch.launch.kcore_run", "--graph", "FC", "--scale", "0.05", "--fused",
+               "--device", "cpu", "--trace", str(tmp_path / "t.json"),
+               "--flight", str(tmp_path / "f.json"))
+    assert out.returncode == 0, out.stderr
+    names = {e["name"] for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"]}
+    assert {"kcore.decompose", "fused-converge", "device-converge", "stats-reconstruct"} <= names
+    flight = json.loads((tmp_path / "f.json").read_text())
+    assert flight["runs"] == 1 and flight["rounds_recorded"] > 1
+
+
+@pytest.mark.parametrize("argv,item", [
+    (("--mode", "block_gs"), "item 4"),
+    (("--backend", "ell"), "item 4"),
+    (("--mesh", "4"), "item 10"),
+    (("--out-of-core",), "item 8"),
+    (("--metrics",), "item 7"),
+])
+def test_cli_refuses_what_is_not_ported(argv, item):
+    out = _run("repro_torch.launch.kcore_run", "--graph", "FC", "--device", "cpu", *argv)
+    assert out.returncode == 2
+    assert f"ROADMAP.md Queue A {item}" in out.stderr
+
+
+def test_cli_without_a_card_fails_unless_cpu_is_asked():
+    env_out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.kcore_run", "--graph", "chain", "--n", "20"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+             "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""})
+    assert env_out.returncode != 0
+    assert "no CUDA device" in env_out.stderr

@@ -1,0 +1,193 @@
+"""The port's two kernels against the JAX package's, bit for bit.
+
+On the CPU each wrapper computes its plain PyTorch version; it is held
+against the reference's Pallas kernel in interpret mode (as
+tests/test_kernels.py runs it) and against the reference's oracles
+(tests/test_torch_gpu.py holds the CUDA kernels against their plain
+versions on the card). Inputs are made with numpy from a seed and handed
+to both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.kcore import _bs_iters, _hindex_by_bsearch
+from repro.core.kcore import hindex_rows_ref as jax_hindex_bsearch
+from repro.graph.structs import Graph as JaxGraph
+from repro.kernels.kcore_hindex.ops import hindex_rows as jax_hindex_pallas
+from repro.kernels.kcore_hindex.ref import hindex_rows_ref as jax_hindex_sorted
+from repro.kernels.segment_sum.ops import blocked_layout, segment_sum_blocked
+from repro_torch.core.dispatch import _hindex_ell, _stage_ell
+from repro_torch.graph.structs import build_ell, from_reference
+from repro_torch.kernels.kcore_hindex import ops as hk
+from repro_torch.kernels.segment_sum import ops as sk
+
+CPU = torch.device("cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _port_hindex(nbr, est, n_iters):
+    return hk.hindex_rows(_t(nbr), _t(est), n_iters).numpy()
+
+
+# ------------------------------ kcore_hindex ------------------------------ #
+
+@pytest.mark.parametrize("rows,width", [(8, 8), (64, 32), (130, 17), (5, 600)])
+def test_hindex_shapes(rows, width):
+    r = np.random.default_rng(rows * 1000 + width)
+    nbr = r.integers(0, 50, (rows, width)).astype(np.int32)
+    est = r.integers(0, 50, rows).astype(np.int32)
+    got = _port_hindex(nbr, est, 7)
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_pallas(jnp.asarray(nbr), jnp.asarray(est), n_iters=7)))
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_sorted(jnp.asarray(nbr), jnp.asarray(est))))
+
+
+@pytest.mark.parametrize("n_iters", [0, 1, 2, 3, 5])
+def test_hindex_partial_probes_match_the_reference(n_iters):
+    """Too few probes give a partial answer; it must be the reference's."""
+    r = np.random.default_rng(n_iters)
+    nbr = r.integers(0, 50, (40, 24)).astype(np.int32)
+    est = r.integers(0, 50, 40).astype(np.int32)
+    got = _port_hindex(nbr, est, n_iters)
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_pallas(jnp.asarray(nbr), jnp.asarray(est), n_iters=n_iters)))
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_bsearch(jnp.asarray(nbr), jnp.asarray(est), n_iters)))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_hindex_random_tiles(seed):
+    r = np.random.default_rng(seed)
+    rows, width = int(r.integers(1, 41)), int(r.integers(1, 41))
+    nbr = r.integers(0, 64, (rows, width)).astype(np.int32)
+    est = r.integers(0, 64, rows).astype(np.int32)
+    got = _port_hindex(nbr, est, 8)
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_pallas(jnp.asarray(nbr), jnp.asarray(est), n_iters=8)))
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_sorted(jnp.asarray(nbr), jnp.asarray(est))))
+
+
+def _jax_ell_round(g, est, n_iters):
+    """One h-index round of the reference's Pallas ELL route (interpret mode)."""
+    from repro.graph.structs import build_ell as jax_build_ell
+
+    ell = jax_build_ell(g, widths=(2, 4, 8, 32))
+    est_ext = np.concatenate([est, np.zeros(1, np.int32)]).astype(np.int32)
+    new_ext = est_ext.copy()
+    for b in ell.buckets:
+        h = jax_hindex_pallas(jnp.asarray(est_ext[b.nbrs]), jnp.asarray(est_ext[b.ids]), n_iters=n_iters)
+        new_ext[b.ids] = np.asarray(h, np.int32)
+    return new_ext[: g.n]
+
+
+def _port_ell_round(g, est, n_iters):
+    tiles = _stage_ell(build_ell(from_reference(g), widths=(2, 4, 8, 32)), CPU)
+    return _hindex_ell(_t(est), tiles, n_iters).numpy()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_ell_round_on_ragged_graphs(seed):
+    """The port's ELL route == the reference's Pallas ELL route == the XLA
+    segment-op binary search, on ragged degree-bucketed layouts."""
+    r = np.random.default_rng(seed)
+    n, e = int(r.integers(2, 49)), int(r.integers(0, 121))
+    g = JaxGraph.from_edges(r.integers(0, n, (e, 2)), n=n)
+    hi = max(g.max_deg, 1) * 2 + 1
+    est = r.integers(0, hi, n).astype(np.int32)
+    est[g.deg == 0] = 0          # the ELL route's exactness precondition
+    n_iters = _bs_iters(hi)
+    got = _port_ell_round(g, est, n_iters)
+    np.testing.assert_array_equal(got, _jax_ell_round(g, est, n_iters))
+    est_j = jnp.asarray(est)
+    seg = np.asarray(_hindex_by_bsearch(est_j, est_j[jnp.asarray(g.dst)], jnp.asarray(g.src), g.n, n_iters))
+    np.testing.assert_array_equal(got, seg)
+
+
+def test_ell_round_pow2_boundary_and_empty_rows():
+    """A hub whose degree sits exactly on a bucket width, padded rows, and
+    isolated vertices."""
+    g = JaxGraph.from_edges([(0, i) for i in range(1, 9)], n=12)
+    est = g.deg.astype(np.int32)
+    n_iters = _bs_iters(g.max_deg)
+    got = _port_ell_round(g, est, n_iters)
+    np.testing.assert_array_equal(got, _jax_ell_round(g, est, n_iters))
+    assert (got[9:] == 0).all()
+
+
+# ------------------------------ segment_sum ------------------------------- #
+
+def _jax_segment_sums(vals, seg, n):
+    lo = blocked_layout(seg, n, R=16, be=32)
+    blocked = np.asarray(segment_sum_blocked(jnp.asarray(vals), lo, n)[:, 0])
+    plain = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=n))
+    np.testing.assert_array_equal(blocked, plain)
+    return plain
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_segment_sum_bit_exact(seed, order):
+    r = np.random.default_rng(seed)
+    E, n = int(r.integers(1, 401)), int(r.integers(1, 81))
+    seg = r.integers(0, n, E)
+    if order == "sorted":
+        seg = np.sort(seg)
+    vals = r.integers(0, 2**20, E).astype(np.int32)
+    layout = sk.csr_layout(seg, n)
+    if order == "sorted":
+        np.testing.assert_array_equal(layout.order, np.arange(E))
+    got = sk.segment_sum(_t(vals[layout.order]), _t(layout.row_ptr)).numpy()
+    np.testing.assert_array_equal(got, _jax_segment_sums(vals, seg, n))
+
+
+@pytest.mark.parametrize("E,n", [(1, 17), (3, 40), (64, 5)])
+def test_segment_sum_empty_segments(E, n):
+    """Rows past the last id, and rows between ids, come out 0 (hypothesis
+    found E=1, n=17 leaving rows of the reference's blocked layout unset)."""
+    seg = np.zeros(E, np.int64) if E < n else np.sort(np.arange(E) % n)
+    vals = np.arange(1, E + 1, dtype=np.int32)
+    layout = sk.csr_layout(seg, n)
+    got = sk.segment_sum(_t(vals[layout.order]), _t(layout.row_ptr)).numpy()
+    np.testing.assert_array_equal(got, _jax_segment_sums(vals, seg, n))
+    assert (got[seg.max() + 1:] == 0).all()
+
+
+def test_segment_sum_wraps_like_int32():
+    vals = np.array([2**31 - 1, 5, -(2**31), -3], np.int32)
+    seg = np.array([0, 0, 1, 1])
+    layout = sk.csr_layout(seg, 2)
+    got = sk.segment_sum(_t(vals), _t(layout.row_ptr)).numpy()
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=2))
+    np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------- wrappers --------------------------------- #
+
+@pytest.mark.parametrize("case", ["dtype", "rank", "strided", "est_shape", "n_iters"])
+def test_hindex_wrapper_rejects_what_the_kernel_does_not_take(case):
+    nbr = torch.zeros((4, 8), dtype=torch.int32)
+    est = torch.zeros(4, dtype=torch.int32)
+    args = {"dtype": (nbr.long(), est, 3), "rank": (nbr.view(-1), est, 3),
+            "strided": (nbr.t(), torch.zeros(8, dtype=torch.int32), 3),
+            "est_shape": (nbr, est[:3], 3), "n_iters": (nbr, est, -1)}[case]
+    with pytest.raises(ValueError):
+        hk.hindex_rows(*args)
+
+
+@pytest.mark.parametrize("case", ["dtype", "row_ptr_dtype", "strided", "empty_row_ptr"])
+def test_segment_sum_wrapper_rejects_what_the_kernel_does_not_take(case):
+    vals = torch.zeros(6, dtype=torch.int32)
+    row_ptr = torch.tensor([0, 3, 6])
+    args = {"dtype": (vals.float(), row_ptr), "row_ptr_dtype": (vals, row_ptr.int()),
+            "strided": (torch.zeros(12, dtype=torch.int32)[::2], row_ptr),
+            "empty_row_ptr": (vals, torch.zeros(0, dtype=torch.int64))}[case]
+    with pytest.raises(ValueError):
+        sk.segment_sum(*args)
+
+
+def test_csr_layout_rejects_out_of_range_ids():
+    with pytest.raises(ValueError):
+        sk.csr_layout(np.array([0, 5]), 5)
