@@ -21,6 +21,25 @@ kernels of ``src/repro_torch/kernels``. Phases, each of which must pass:
 6. Full size: ``snap_analogue("SPR", 1.0)`` through the CLI's entry point,
    fused and then host loop, equal to each other and to BZ, with the kernels'
    launch counters read around these runs only.
+7. Flash attention against its plain version: the serve shape (bf16,
+   B*H 128, S 2048, d 64, causal), a ragged S, GQA and MQA, a window, d 128,
+   float32, Sq != Sk and rows masked everywhere, within 2e-2 (bf16) and
+   2e-5 (float32); at the serve shape its time beside the plain version's,
+   ``scaled_dot_product_attention``'s and the FLOP bound.
+8. LM serving: ``qwen1.5-0.5b`` at full width (24 layers, d_model 1024,
+   vocab 151,936; weights drawn from seed 0) through
+   ``repro_torch.launch.serve.generate``: batch 8, prompt 2048, 32 tokens,
+   with the flash kernel's launch counter read around that run only (24, one
+   a layer of the prefill), and the same run once more under
+   ``torch.profiler`` (``serve.profile_serve``: device busy and idle time,
+   the costliest kernels). Then batch 1, prompt 128 on the card and on the
+   CPU from the same weights, and in float32 on the CPU: the prefill logits
+   and 4 teacher-forced decode steps of the card within ``tol`` of the CPU's
+   and of the float32 evaluation, where ``tol`` is twice the CPU bf16
+   route's own distance from the float32 evaluation (the bf16 model's
+   rounding noise: two routes each that close to it are within twice that
+   of each other), and at least two bf16 units in the last place of the
+   largest logit.
 
 It then prints the ``kernels`` JSON line and, last, the ``ok`` line. It exits
 non-zero, without the ``ok`` line, if any check fails, if no CUDA device is
@@ -31,6 +50,7 @@ present, or if ``src/repro_torch`` is not beside it. It imports neither
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -45,7 +65,15 @@ KERNEL_FILES = {
                      "src/repro/kernels/kcore_hindex/kernel.py:46"),
     "segment_sum": ("src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
                     "src/repro/kernels/segment_sum/kernel.py:45"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:85"),
 }
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, NVIDIA's data sheet
+F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# tests/test_kernels.py:160's tolerances: a bf16 output ulp is 1.6e-2 in [2, 4) and the
+# kernel rounds p to bf16 before PV, as the TPU kernel does; float32 rounds nothing narrower
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+SERVE = {"arch": "qwen1.5-0.5b", "batch": 8, "prompt": 2048, "gen": 32, "seed": 0}
 
 failures: list[str] = []
 
@@ -89,6 +117,176 @@ def max_err(torch, a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
 
+def flash_cases(torch, np, dev, st, small: bool = False) -> None:
+    """Phase 7: the flash kernel against its plain version (``attention_ref``).
+    ``small`` (the CPU rehearsal) cuts every length and window by 8."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    rng = np.random.default_rng(1)
+
+    def qkv(B, Sq, Sk, Hq, Hkv, d, dtype):
+        return [torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev).to(dtype)
+                for shape in [(B, Sq, Hq, d), (B, Sk, Hkv, d), (B, Sk, Hkv, d)]]
+
+    def plain(q, k, v, causal, window):
+        B, Sq, Hq, d = q.shape
+        _, Sk, Hkv, _ = k.shape
+        out = fa.attention_ref(q.transpose(1, 2).reshape(B * Hq, Sq, d),
+                               k.transpose(1, 2).reshape(B * Hkv, Sk, d),
+                               v.transpose(1, 2).reshape(B * Hkv, Sk, d),
+                               causal=causal, window=window)
+        return out.reshape(B, Hq, Sq, d).transpose(1, 2)
+
+    def pairs(Sq, Sk, causal, window):
+        """(q, k) pairs the scores need: the unmasked ones, and all Sk keys of a
+        row masked everywhere (it averages v over them)."""
+        qp = torch.arange(Sq)[:, None]
+        kp = torch.arange(Sk)[None, :]
+        mask = torch.ones(Sq, Sk, dtype=torch.bool)
+        if causal:
+            mask &= kp <= qp
+        if window is not None:
+            mask &= kp > qp - window
+        seen = mask.sum(1)
+        return int(torch.where(seen == 0, Sk, seen).sum())
+
+    cases = [  # B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, label
+        (8, 2048, 2048, 16, 16, 64, True, None, torch.bfloat16, "serve shape"),
+        (2, 1000, 1000, 16, 16, 64, True, None, torch.bfloat16, "ragged S"),
+        (2, 512, 512, 16, 8, 64, True, None, torch.bfloat16, "GQA rep 2"),
+        (2, 512, 512, 16, 1, 64, True, None, torch.bfloat16, "MQA"),
+        (2, 2048, 2048, 8, 8, 64, True, 256, torch.bfloat16, "window 256"),
+        (2, 1024, 1024, 8, 2, 128, True, None, torch.bfloat16, "d 128, GQA rep 4"),
+        (1, 777, 777, 8, 8, 128, False, 100, torch.bfloat16, "d 128, window, not causal"),
+        (2, 512, 512, 8, 8, 64, True, None, torch.float32, "float32"),
+        (1, 300, 300, 4, 2, 128, True, 64, torch.float32, "float32 d 128, window"),
+        (2, 512, 1024, 16, 16, 64, False, None, torch.bfloat16, "Sq < Sk"),
+        (2, 1024, 384, 16, 16, 64, True, None, torch.bfloat16, "Sq > Sk"),
+        (1, 600, 200, 16, 4, 64, True, 64, torch.bfloat16, "rows masked everywhere"),
+        (1, 300, 100, 4, 4, 64, True, 32, torch.float32, "float32, rows masked everywhere"),
+    ]
+    for B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, label in cases:
+        if small:
+            Sq, Sk, window = Sq // 8, Sk // 8, window and window // 8
+        q, k, v = qkv(B, Sq, Sk, Hq, Hkv, d, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = plain(q, k, v, causal, window)
+        err = float((got.float() - want.float()).abs().max())
+        key = "err" if dtype == torch.bfloat16 else "err_f32"
+        st[key] = max(st[key], err)
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        msg = (f"flash_attention {label}: B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} d={d} "
+               f"causal={causal} window={window} {str(dtype).split('.')[1]}: max|err| {err:.3g} "
+               f"< {tol}")
+        ok = err < tol and bool(torch.isfinite(got).all())
+        if "masked everywhere" in label:
+            first = Sk + window - 1
+            mean_v = v.float().mean(dim=1).repeat_interleave(Hq // Hkv, dim=1)   # (B, Hq, d)
+            row_err = float((got[:, first:].float() - mean_v[:, None]).abs().max())
+            msg += f"; rows >= {first} are the mean of v (max|err| {row_err:.3g})"
+            ok = ok and row_err < tol
+        if label == "serve shape":
+            flop = 4 * B * Hq * d * pairs(Sq, Sk, causal, window)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            bnd = max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+            ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 20)
+            plain_ms = time_ms(torch, lambda: plain(q, k, v, True, None), 3, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                          20)
+            lib_err = float((F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+                             .transpose(1, 2).float() - want.float()).abs().max())
+            st.update(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd)
+            msg += (f"; {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+                    f"scaled_dot_product_attention {lib:.4f} ms (its max|err| {lib_err:.3g}), "
+                    f"bound {bnd:.4f} ms ({flop:.4g} FLOP, {nbytes} bytes), {bnd / ms:.1%} of it")
+        check(ok, msg)
+        del q, k, v, got, want
+
+
+def serve_full_width(torch, dev, small: bool = False) -> int:
+    """Phase 8: serve the full-width model on the card through the serve loop,
+    then hold the card's route against the CPU's plain route at batch 1.
+    Returns the flash kernel's launches in the measured serve run. ``small``
+    (the CPU rehearsal) serves the SMOKE config at a short prompt instead."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer.model import cast_params, init_params, params_to
+
+    cfg = (get_smoke if small else get_config)(SERVE["arch"])
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    f32_params = init_params(cfg, SERVE["seed"], device=cpu)
+    cpu_params = cast_params(f32_params)
+    params = params_to(cpu_params, dev)
+    n_params = sum(t.numel() for t in params["layers"]["attn"].values()) \
+        + sum(t.numel() for t in params["layers"]["mlp"].values()) + params["embed"].numel()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads} "
+          f"(kv {cfg.n_kv_heads}), d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{n_params} weights drawn and cast to bf16 in {time.perf_counter() - t0:.1f} s")
+    B, P, G = SERVE["batch"], SERVE["prompt"] // (16 if small else 1), SERVE["gen"]
+    prompts = serve.make_prompts(cfg, B, P, dev)
+    serve.generate(params, cfg, prompts, 2)          # warm-up: cuBLAS handles, the allocator
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.launches = 0
+    res = serve.generate(params, cfg, prompts, G)
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    wall = res.prefill_s + res.decode_s
+    print(f"  prefill {res.prefill_s * 1e3:.3f} ms ({B * P / res.prefill_s:.1f} prompt tok/s); "
+          f"decode {res.decode_ms_per_token:.3f} ms per token ({B * (G - 1) / res.decode_s:.1f} "
+          f"tok/s over {G - 1} steps); {B * G / wall:.1f} tok/s end to end ({wall:.3f} s); "
+          f"peak device memory {peak} bytes; flash launches {launches}")
+    print(f"  sample: {res.tokens[0][:12].tolist()}")
+    if dev.type == "cuda":
+        prof = serve.profile_serve(params, cfg, prompts, min(G, 9))
+        print("  under torch.profiler (same shapes, after the measured run; 8 decode steps):")
+        print("\n".join("    " + line for line in serve.format_profile(prof).splitlines()))
+    logits = res.prefill_logits
+    check(res.tokens.shape == (B, G) and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
+          and tuple(logits.shape) == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"served {B} x {G} tokens in range, prefill logits ({B}, {cfg.vocab}) finite")
+    if dev.type == "cuda":
+        check(launches == cfg.n_layers,
+              f"the prefill launched the flash kernel once a layer ({launches} == {cfg.n_layers})")
+    del res, logits, prompts
+
+    # the card's route against the CPU's plain route, from the same weights, and
+    # both against a float32 evaluation of those weights
+    prompt1 = serve.make_prompts(cfg, 1, 128, cpu)
+    card = serve.generate(params, cfg, prompt1.to(dev), 5, keep_logits=True)
+    t0 = time.perf_counter()
+    plain = serve.generate(cpu_params, cfg, prompt1, 5, forced=card.tokens, keep_logits=True)
+    exact = serve.generate(f32_params, cfg, prompt1, 5, forced=card.tokens, keep_logits=True,
+                           dtype=torch.float32)
+    print(f"  batch 1, prompt 128 on the CPU in bf16 and in float32 (plain versions) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def dist(a, b):
+        return float((a.cpu().float() - b.cpu().float()).abs().max())
+
+    for i, (got, want, ref) in enumerate(zip([card.prefill_logits] + card.step_logits,
+                                             [plain.prefill_logits] + plain.step_logits,
+                                             [exact.prefill_logits] + exact.step_logits)):
+        top = float(ref.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        noise = dist(want, ref)
+        tol = max(2 * noise, 2 * ulp)
+        err, err32 = dist(got, want), dist(got, ref)
+        check(err <= tol and err32 <= tol,
+              f"{'prefill' if i == 0 else f'decode step {i}'} logits in bf16 ulps of max|logit| "
+              f"{top:.4g}: card vs CPU {err / ulp:.2f}, card vs float32 {err32 / ulp:.2f}, "
+              f"CPU vs float32 {noise / ulp:.2f}; tolerance {tol / ulp:.2f}")
+    del params, cpu_params, f32_params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -117,6 +315,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     rng = np.random.default_rng(0)
     stats = {name: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
              for name in KERNEL_FILES}
+    stats["flash_attention"].update(err=0.0, err_f32=0.0, bound_by="operations")
 
     # ------------------------------------------------------------------ #
     phase("1. card")
@@ -322,18 +521,33 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"{gather_ms:.3f} ms, kcore_hindex {stats['kcore_hindex']['ms']:.3f} ms, "
           f"segment_sum {stats['segment_sum']['ms']:.3f} ms")
 
+    del body, live, everyone, ext, tiles, deg_t, runs, fused, host, g, ell
     # ------------------------------------------------------------------ #
-    phase("7. kernels")
+    phase("7. flash_attention against its plain version")
+    flash_cases(torch, np, dev, stats["flash_attention"], small=device != "cuda")
+
+    # ------------------------------------------------------------------ #
+    phase(f"8. serve {SERVE['arch']} at full width: batch {SERVE['batch']}, prompt "
+          f"{SERVE['prompt']}, {SERVE['gen']} tokens")
+    launches["flash_attention"] = serve_full_width(torch, dev, small=device != "cuda")
+
+    # ------------------------------------------------------------------ #
+    phase("9. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": st["err"], "ms": st["ms"],
-            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": "bytes",
-            "library_ms": st["library_ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st.get("bound_by", "bytes"), "library_ms": st["library_ms"],
             "check": "bit-equal to plain" if st["err"] == 0 else "MISMATCH",
-        })
+        }
+        if name == "flash_attention":
+            ok = st["err"] < FLASH_TOL["bfloat16"] and st["err_f32"] < FLASH_TOL["float32"]
+            entry.update(max_abs_err_f32=st["err_f32"], tolerance=FLASH_TOL,
+                         check="within tolerance of plain" if ok else "MISMATCH")
+        kernels.append(entry)
     print(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     if failures:
         print(f"FAILED {len(failures)} check(s):")

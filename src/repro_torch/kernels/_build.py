@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 SOURCES = {
     "segment_sum": "segment_sum/csrc/segment_sum.cu",
     "kcore_hindex": "kcore_hindex/csrc/kcore_hindex.cu",
+    "flash_attention": "flash_attention/csrc/flash_attention.cu",
 }
 
 _lock = threading.Lock()

@@ -78,3 +78,35 @@ def test_cli_without_a_card_fails_unless_cpu_is_asked():
              "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""})
     assert env_out.returncode != 0
     assert "no CUDA device" in env_out.stderr
+
+
+# ------------------------------ serve ------------------------------------- #
+
+def test_serve_cli_on_the_cpu_prints_its_lines():
+    out = _run("repro_torch.launch.serve", "--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+               "--batch", "2", "--prompt-len", "16", "--gen", "4")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("arch=qwen1.5-0.5b-smoke served batch=2 prompt=16 generated=4 "
+                               "tokens in ")
+    assert lines[0].endswith(" tok/s)")
+    sample = json.loads(lines[1].removeprefix("sample: "))
+    assert len(sample) == 4 and all(0 <= t < 512 for t in sample)
+    assert lines[2].startswith("device: cpu") and "ms/token" in lines[2]
+
+
+def test_serve_cli_without_a_card_fails_unless_cpu_is_asked():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen1.5-0.5b", "--smoke"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+             "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("arch,item", [("qwen2-moe-a2.7b", "item 17"), ("schnet", "item 12")])
+def test_serve_cli_refuses_what_is_not_ported(arch, item):
+    out = _run("repro_torch.launch.serve", "--arch", arch, "--device", "cpu")
+    assert out.returncode == 2
+    assert f"ROADMAP.md Queue A {item}" in out.stderr

@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and the
-decomposition through both kernels.
+"""The port on the card: each CUDA kernel against its plain version, the
+decomposition through the k-core kernels, and serving through the flash
+kernel against the same weights served on the CPU.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is present;
 the file imports neither ``jax`` nor the reference, so it runs on a machine
@@ -15,8 +16,11 @@ import torch
 from repro_torch.core.bz import bz_core_numbers
 from repro_torch.core.kcore import kcore_decompose
 from repro_torch.graph import generators
+from repro_torch.configs import get_smoke
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.kcore_hindex import ops as hk
 from repro_torch.kernels.segment_sum import ops as sk
+from repro_torch.launch import serve
 
 pytestmark = pytest.mark.gpu
 
@@ -66,3 +70,74 @@ def test_decomposition_on_the_card_runs_both_kernels(cuda, fused):
     cpu = kcore_decompose(g, fused=fused, device="cpu")
     assert res.rounds == cpu.rounds
     np.testing.assert_array_equal(res.stats.messages_per_round, cpu.stats.messages_per_round)
+
+
+# tolerances of tests/test_kernels.py:160 (reasons in tests/test_torch_flash_attention.py)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window,dtype", [
+    (2, 256, 256, 4, 4, 64, True, None, torch.bfloat16),     # tensor-core kernel, d 64
+    (1, 200, 200, 4, 2, 128, True, None, torch.bfloat16),    # d 128, GQA, ragged tiles
+    (2, 130, 130, 8, 1, 64, True, 48, torch.bfloat16),       # MQA, window
+    (1, 96, 160, 2, 2, 64, False, None, torch.bfloat16),     # Sq != Sk, not causal
+    (1, 100, 20, 2, 1, 64, True, 8, torch.bfloat16),         # rows masked everywhere
+    (1, 100, 20, 2, 1, 128, True, 8, torch.float32),
+    (2, 77, 77, 4, 2, 64, True, 16, torch.float32),          # float32 kernel
+    (1, 65, 33, 2, 2, 128, False, 9, torch.float32),
+    (2, 40, 40, 4, 4, 16, True, None, torch.bfloat16),       # small d: CUDA-core kernel
+    (1, 50, 50, 8, 2, 8, True, 7, torch.float32),
+])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, window, dtype):
+    r = np.random.default_rng(Sq * 1000 + Sk + D)
+    q, k, v = (torch.as_tensor(r.standard_normal(shape, dtype=np.float32), device=cuda).to(dtype)
+               for shape in [(B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)])
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype and torch.isfinite(got).all()
+    want = fa.attention_ref(q.transpose(1, 2).reshape(B * Hq, Sq, D),
+                            k.transpose(1, 2).reshape(B * Hkv, Sk, D),
+                            v.transpose(1, 2).reshape(B * Hkv, Sk, D), causal=causal, window=window)
+    want = want.reshape(B, Hq, Sq, D).transpose(1, 2)
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+
+
+def test_flash_kernel_refuses_other_head_dims(cuda):
+    q = torch.zeros(1, 8, 2, 24, device=cuda)
+    before = fa.launches
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    assert fa.launches == before
+
+
+def test_flash_kernel_reads_strided_views_in_place(cuda):
+    r = np.random.default_rng(5)
+    qkv = torch.as_tensor(r.standard_normal((2, 300, 3, 4, 64), dtype=np.float32),
+                          device=cuda).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert fa._kernel_layout(q) is q
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_serve_on_the_card_matches_the_cpu(cuda):
+    """The smoke qwen config (d_head 16: the CUDA-core kernel) served on the
+    card and on the CPU from the same weights: prefill logits and four
+    teacher-forced decode steps within two bf16 units in the last place of
+    the largest logit, and one flash launch per layer in the prefill."""
+    cfg = get_smoke("qwen1.5-0.5b")
+    cpu_params = serve.make_params(cfg, 0, torch.device("cpu"))
+    prompts = serve.make_prompts(cfg, 2, 40, torch.device("cpu"))
+    fa.launches = 0
+    card = serve.generate(serve.make_params(cfg, 0, cuda), cfg, prompts.to(cuda), 5,
+                          keep_logits=True)
+    assert fa.launches == cfg.n_layers
+    plain = serve.generate(cpu_params, cfg, prompts, 5, forced=card.tokens, keep_logits=True)
+    for got, want in zip([card.prefill_logits] + card.step_logits,
+                         [plain.prefill_logits] + plain.step_logits):
+        top = float(want.abs().max())
+        tol = 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert float((got.cpu() - want).abs().max()) <= tol
