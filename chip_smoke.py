@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-The main path is the paper's from-scratch k-core decomposition
-(``repro_torch.launch.kcore_run``), whose superstep runs the two CUDA
-kernels of ``src/repro_torch/kernels``. Phases, each of which must pass:
+The main paths are the paper's from-scratch k-core decomposition
+(``repro_torch.launch.kcore_run``, whose superstep runs the ``kcore_hindex``
+and ``segment_sum`` kernels), LM serving (``launch.serve``, prefill attention
+on the flash-attention kernel) and DIN (``launch.din_serve``, the context bag
+on the embedding-bag kernel); each kernel is hand-written CUDA under
+``src/repro_torch/kernels``. Phases, each of which must pass:
 
 1. Card: the card's name and power limit, as ``nvidia-smi`` gives them.
-2. Build: both kernels, for sm_90a, from the sources in this checkout, with
+2. Build: the four kernels, for sm_90a, from the sources in this checkout, with
    the compiler's register and shared-memory report.
 3. Kernel against plain: each kernel bit-equal to its plain PyTorch version
    on edge cases and at the main path's real shapes (every ELL bucket of
@@ -41,6 +44,31 @@ kernels of ``src/repro_torch/kernels``. Phases, each of which must pass:
    of each other), and at least two bf16 units in the last place of the
    largest logit.
 
+9. The embedding-bag kernel against its plain version: the reference's sweep
+   (indices in [-1, V)), bags that are all padding, L = 1, B = 0, L = 0, a
+   bf16 table, DIN's context bag at ``serve_p99`` and ``serve_bulk`` (table
+   10,000 x 18, indices (B, 16)), and the 1,000,000 x 18 item table under
+   Zipf indices (65,536, 100) with -1 padding; within rtol = atol = 1e-5 in
+   float32 (``tests/test_kernels.py:202``) and one bf16 unit in the last
+   place of the output in bf16. At the two DIN shapes its time beside the
+   plain version's, ``F.embedding_bag``'s and the bytes bound.
+10. DIN at full width (``configs/din.py``: 10^6 x 18 item table, history of
+   100, MLPs 80-40 and 200-80; weights drawn from seed 0 on the card)
+   through ``repro_torch.launch.din_serve``'s functions: 3 train steps at
+   ``train_batch`` (65,536), serving at ``serve_p99`` (512) and
+   ``serve_bulk`` (262,144), retrieval at ``retrieval_cand`` (10^6
+   candidates, padded to 1,000,448, top 100), with the bag kernel's launch
+   counter read around each part (one launch a serve step and a train
+   forward, none in retrieval) and the peak device memory, and the same
+   calls once more under ``torch.profiler`` (``obs.profile``). Then the card
+   against the CPU from the same weights and batches, and both against a
+   float64 evaluation on the CPU: serve logits at batch 512, one train step
+   at batch 4,096 (loss, grad norm, updated parameters) and retrieval
+   scores at 65,536 candidates, each within ``tol`` = max(2 x the CPU float32
+   route's distance from float64, 4 float32 units in the last place of the
+   largest magnitude compared); the top 100 are compared allowing for ties
+   (``checks.check_topk``).
+
 It then prints the ``kernels`` JSON line and, last, the ``ok`` line. It exits
 non-zero, without the ``ok`` line, if any check fails, if no CUDA device is
 present, or if ``src/repro_torch`` is not beside it. It imports neither
@@ -67,6 +95,8 @@ KERNEL_FILES = {
                     "src/repro/kernels/segment_sum/kernel.py:45"),
     "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:85"),
+    "embedding_bag": ("src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag/kernel.py:38"),
 }
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -74,6 +104,11 @@ F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 # kernel rounds p to bf16 before PV, as the TPU kernel does; float32 rounds nothing narrower
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SERVE = {"arch": "qwen1.5-0.5b", "batch": 8, "prompt": 2048, "gen": 32, "seed": 0}
+BAG_TOL = 1e-5   # rtol = atol for float32, tests/test_kernels.py:202-203
+# DIN's RECSYS_SHAPES, and the smaller batches at which the card is held against the CPU
+DIN = {"train_batch": 65536, "train_steps": 3, "serve": (512, 262_144), "n_candidates": 1_000_000,
+       "top_k": 100, "seed": 0, "check_serve": 512, "check_train": 4096,
+       "check_retrieval": 65536}
 
 failures: list[str] = []
 
@@ -215,6 +250,7 @@ def serve_full_width(torch, dev, small: bool = False) -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve
     from repro_torch.models.transformer.model import cast_params, init_params, params_to
+    from repro_torch.obs.profile import format_profile
 
     cfg = (get_smoke if small else get_config)(SERVE["arch"])
     cpu = torch.device("cpu")
@@ -245,7 +281,7 @@ def serve_full_width(torch, dev, small: bool = False) -> int:
     if dev.type == "cuda":
         prof = serve.profile_serve(params, cfg, prompts, min(G, 9))
         print("  under torch.profiler (same shapes, after the measured run; 8 decode steps):")
-        print("\n".join("    " + line for line in serve.format_profile(prof).splitlines()))
+        print("\n".join("    " + line for line in format_profile(prof).splitlines()))
     logits = res.prefill_logits
     check(res.tokens.shape == (B, G) and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
           and tuple(logits.shape) == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
@@ -287,6 +323,274 @@ def serve_full_width(torch, dev, small: bool = False) -> int:
     return launches
 
 
+def bag_cases(torch, np, dev, st, small: bool = False) -> None:
+    """Phase 9: the embedding-bag kernel against its plain version
+    (``embedding_bag_sum_ref``). ``small`` (the CPU rehearsal) cuts the DIN
+    shapes by 64."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as bag
+
+    rng = np.random.default_rng(2)
+    cut = 64 if small else 1
+
+    def table(V, D, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal((V, D), dtype=np.float32), device=dev).to(dtype)
+
+    def ints(lo, hi, shape):
+        return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32), device=dev)
+
+    def zipf_hist(V, B, L):
+        """Zipf(1.3) item ids clipped at V - 1, padded with -1 past a length
+        drawn from [L/4, L], as ``synth_batch`` draws DIN's history."""
+        idx = rng.zipf(1.3, (B, L)).clip(max=V - 1)
+        lens = rng.integers(L // 4, L + 1, B)
+        idx = np.where(np.arange(L)[None, :] < lens[:, None], idx, -1)
+        return torch.as_tensor(idx.astype(np.int32), device=dev)
+
+    all_pad = ints(-1, 50, (9, 6))
+    all_pad[::3] = -1
+    cases = [  # table, indices, label, timed
+        (table(100, 8), ints(-1, 100, (4, 5)), "sweep", False),
+        (table(500, 24), ints(-1, 500, (13, 7)), "sweep", False),
+        (table(1000, 32), ints(-1, 1000, (32, 20)), "sweep", False),
+        (table(50, 18), all_pad, "bags all padding", False),
+        (table(100, 18), ints(-1, 100, (33, 1)), "L = 1", False),
+        (table(100, 18), ints(-1, 100, (0, 5)), "B = 0", False),
+        (table(100, 18), ints(-1, 100, (7, 0)), "L = 0", False),
+        (table(1000, 32, torch.bfloat16), ints(-1, 1000, (64, 20)), "bf16 table", False),
+        (table(1000, 18, torch.bfloat16), ints(0, 1000, (512, 16)), "bf16 table, DIN widths",
+         False),
+        (table(10_000, 18), ints(0, 10_000, (512 // cut, 16)), "DIN context bag, serve_p99", True),
+        (table(10_000, 18), ints(0, 10_000, (262_144 // cut, 16)), "DIN context bag, serve_bulk",
+         True),
+        (table(1_000_000 // cut, 18), zipf_hist(1_000_000 // cut, 65_536 // cut, 100),
+         "item table, Zipf history", False),
+    ]
+    for tab, idx, label, timed in cases:
+        got = bag.embedding_bag_sum(tab, idx)
+        want = bag.embedding_bag_sum_ref(tab, idx)
+        diff = (got.float() - want.float()).abs()
+        B, L = idx.shape
+        msg = f"embedding_bag {label}: V={tab.shape[0]} D={tab.shape[1]} B={B} L={L} " \
+              f"{str(tab.dtype).split('.')[1]}: "
+        if tab.dtype == torch.bfloat16:
+            # the two sum in float32 in other orders, so their roundings to bf16 may differ by one
+            # unit in the last place of the output
+            ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=2.0**-126))) - 7)
+            ulps = float((diff / ulp).max()) if diff.numel() else 0.0
+            st["err_bf16_ulps"] = max(st["err_bf16_ulps"], ulps)
+            ok = ulps <= 1.0
+            msg += f"max|err| {ulps:.3g} bf16 ulps of the output <= 1"
+        else:
+            excess = float((diff - BAG_TOL * want.abs()).max()) if diff.numel() else -BAG_TOL
+            err = float(diff.max()) if diff.numel() else 0.0
+            st["err"] = max(st["err"], err)
+            st["excess"] = max(st["excess"], excess)
+            ok = excess <= BAG_TOL
+            msg += (f"max|err| {err:.3g}, max(|err| - rtol |want|) {excess:.3g} <= atol "
+                    f"(rtol = atol = {BAG_TOL})")
+        ok = ok and got.shape == (B, tab.shape[1]) and got.dtype == tab.dtype \
+            and bool(torch.isfinite(got).all())
+        if label == "bags all padding":
+            ok = ok and not bool(got[::3].any())
+            msg += "; the padded bags are 0"
+        if label == "L = 0":
+            ok = ok and not bool(got.any())
+            msg += "; all 0"
+        if timed:
+            safe, weight = idx.clamp(min=0), (idx >= 0).to(tab.dtype)   # for F.embedding_bag
+            lib_out = F.embedding_bag(safe, tab, mode="sum", per_sample_weights=weight)
+            lib_err = float((lib_out - want).abs().max())
+            reps = 200 if B < 10_000 else 50
+            ms = time_ms(torch, lambda: bag.embedding_bag_sum(tab, idx), reps)
+            plain = time_ms(torch, lambda: bag.embedding_bag_sum_ref(tab, idx), 10)
+            lib = time_ms(torch, lambda: F.embedding_bag(safe, tab, mode="sum",
+                                                         per_sample_weights=weight), reps)
+            rows = int(torch.unique(idx[idx >= 0]).numel())
+            nbytes = idx.numel() * 4 + got.numel() * got.element_size() \
+                + rows * tab.shape[1] * tab.element_size()
+            bnd = bound_ms(nbytes)
+            st.setdefault("timed", {})[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                                     bound_ms=bnd)
+            if "serve_bulk" in label:
+                st.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd)
+            msg += (f"; {ms:.4f} ms, plain {plain:.4f} ms, F.embedding_bag {lib:.4f} ms (its "
+                    f"max|err| {lib_err:.3g}; indices clamped and masked beforehand), bound "
+                    f"{bnd:.4f} ms ({nbytes} bytes: indices, output, {rows} table rows), "
+                    f"{bnd / ms:.1%} of it")
+        check(ok, msg)
+        del got, want, diff
+
+
+def hold(what: str, card, cpu, f64) -> bool:
+    """Check the card's ``card`` within ``checks.tolerance`` of the CPU
+    route and of the float64 evaluation (``checks.hold``)."""
+    from repro_torch import checks
+
+    r = checks.hold(card, cpu, f64)
+    ulp = r["ulp"]
+    return check(r["ok"],
+                 f"{what}, in float32 ulps ({ulp:.3g}) of the largest magnitude: card vs CPU "
+                 f"{r['err'] / ulp:.2f}, card vs float64 {r['err64'] / ulp:.2f}, CPU vs float64 "
+                 f"{r['noise'] / ulp:.2f}; tolerance {r['tol'] / ulp:.2f}")
+
+
+def din_full_width(torch, dev, small: bool = False) -> int:
+    """Phase 10: DIN at full width on the card through the launcher's
+    functions, then the card against the CPU and a float64 evaluation.
+    Returns the bag kernel's launches in the measured train, serve and
+    retrieval runs. ``small`` (the CPU rehearsal) runs the SMOKE config at
+    small batches."""
+    from repro_torch import checks
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels.embedding_bag import ops as bag
+    from repro_torch.launch import din_serve
+    from repro_torch.models.recsys import din, steps
+    from repro_torch.obs.profile import format_profile, profile_call
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = (get_smoke if small else get_config)("din")
+    cut = 64 if small else 1
+    cpu = torch.device("cpu")
+    on_card = dev.type == "cuda"
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if on_card else 0
+
+    def reset():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "float32 products are full float32 (no TF32)")
+    t0 = time.perf_counter()
+    params = din.init_params(cfg, DIN["seed"], dev)
+    n_params = sum(p.numel() for p in leaves(params))
+    print(f"  {cfg.name}: embed_dim {cfg.embed_dim}, seq_len {cfg.seq_len}, attention MLP "
+          f"{cfg.attn_mlp}, prediction MLP {cfg.mlp}, {cfg.n_items} items, {cfg.n_cates} "
+          f"categories; {n_params} weights drawn on {dev} in {time.perf_counter() - t0:.2f} s")
+    launches = 0
+
+    # 1. train
+    B = DIN["train_batch"] // cut
+    reset()
+    bag.launches = 0
+    tr = din_serve.train(params, adamw_init(params), cfg, DIN["train_steps"], B, dev)
+    launches += bag.launches
+    print(f"  train: {DIN['train_steps']} steps at batch {B}: losses "
+          f"{[round(x, 6) for x in tr.losses]}, {tr.ms_per_step:.3f} ms a step (the first "
+          f"included); peak device memory {peak()} bytes; bag launches {bag.launches}")
+    check(all(math.isfinite(x) for x in tr.losses), "train losses finite")
+    if on_card:
+        check(bag.launches == DIN["train_steps"],
+              f"one bag launch a train forward ({bag.launches} == {DIN['train_steps']})")
+
+    # 2. serve
+    serve_batches = {}
+    for B in DIN["serve"]:
+        B //= cut
+        batch = serve_batches[B] = din_serve.make_batch(cfg, "serve", B, 99, dev)
+        din_serve.serve(tr.params, cfg, batch)                  # warm-up
+        reps = 10 if B <= 512 else 3
+        reset()
+        bag.launches = 0
+        times = []
+        for _ in range(reps):
+            probs, ms = din_serve.serve(tr.params, cfg, batch)
+            times.append(ms)
+        launches += bag.launches
+        print(f"  serve batch {B}: {sum(times) / reps:.3f} ms a batch (min {min(times):.3f}, "
+              f"{reps} batches; {B * reps / sum(times) * 1e3:.1f} requests/s), mean ctr "
+              f"{float(probs.mean()):.6f}; peak device memory {peak()} bytes; bag launches "
+              f"{bag.launches}")
+        check(probs.shape == (B,) and bool(((probs > 0) & (probs < 1)).all()),
+              f"serve batch {B}: probabilities in (0, 1)")
+        if on_card:
+            check(bag.launches == reps, f"serve batch {B}: one bag launch a step "
+                                        f"({bag.launches} == {reps})")
+        del probs
+
+    # 3. retrieval
+    N = DIN["n_candidates"] // cut
+    rb = din_serve.make_batch(cfg, "retrieval", N, 7, dev)
+    din_serve.retrieve(tr.params, cfg, rb, DIN["top_k"])        # warm-up
+    reset()
+    bag.launches = 0
+    vals, idx, ms = din_serve.retrieve(tr.params, cfg, rb, DIN["top_k"])
+    launches += bag.launches
+    n_pad = rb["cand_items"].numel()
+    print(f"  retrieval over {n_pad} candidates (padded from {N}), top {DIN['top_k']}: {ms:.3f} "
+          f"ms; peak device memory {peak()} bytes; bag launches {bag.launches}; best "
+          f"{idx[:5].tolist()}")
+    check(n_pad == -(-N // 512) * 512 and vals.shape == idx.shape == (DIN["top_k"],)
+          and bool(torch.isfinite(vals).all()) and bool(((idx >= 0) & (idx < n_pad)).all())
+          and bool((vals[:-1] >= vals[1:]).all()),
+          f"retrieval: {DIN['top_k']} finite scores, best first, of {n_pad} candidates")
+    if on_card:
+        check(bag.launches == 0, "retrieval launched no bag kernel")
+        # the same calls once more under torch.profiler
+        prof = {}
+        train_step = steps.make_train_step(cfg)
+        tb = din_serve.make_batch(cfg, "train", DIN["train_batch"], 0, dev)
+        _, prof[f"train step, batch {DIN['train_batch']}"] = profile_call(
+            lambda: train_step(tr.params, tr.opt_state, tb), dev)
+        serve_step = steps.make_serve_step(cfg)
+        for B, batch in serve_batches.items():
+            _, prof[f"serve, batch {B}"] = profile_call(lambda: serve_step(tr.params, batch), dev)
+        retrieval_step = steps.make_retrieval_step(cfg, DIN["top_k"])
+        _, prof[f"retrieval, {n_pad} candidates"] = profile_call(
+            lambda: retrieval_step(tr.params, rb), dev)
+        print("  under torch.profiler (the same shapes, after the measured runs):")
+        print("\n".join("    " + line for line in format_profile(prof).splitlines()))
+        del tb
+    del rb, vals, idx, serve_batches
+
+    # 4. the card against the CPU's float32 route and a float64 evaluation on the CPU
+    t0 = time.perf_counter()
+    p32 = din.params_to(tr.params, cpu)
+    p64 = din.params_to(p32, dtype=torch.float64)
+    sb = steps.synth_batch(cfg, din_serve.shape_spec("serve", DIN["check_serve"] // cut), seed=99)
+    with torch.no_grad():
+        hold(f"serve logits at batch {DIN['check_serve'] // cut}",
+             *(din.logits(p, cfg, steps.batch_to(sb, d)) for p, d in
+               [(tr.params, dev), (p32, cpu), (p64, cpu)]))
+
+    tb = steps.synth_batch(cfg, din_serve.shape_spec("train", DIN["check_train"] // cut), seed=123)
+    step = steps.make_train_step(cfg)
+    o32 = din.params_to(tr.opt_state, cpu)
+    o64 = {"m": din.params_to(o32["m"], dtype=torch.float64),
+           "v": din.params_to(o32["v"], dtype=torch.float64), "count": o32["count"]}
+    outs = [step(p, o, steps.batch_to(tb, d)) for p, o, d in
+            [(tr.params, tr.opt_state, dev), (p32, o32, cpu), (p64, o64, cpu)]]
+    B = DIN["check_train"] // cut
+    hold(f"train step at batch {B}: loss", *(o[2]["loss"] for o in outs))
+    hold(f"train step at batch {B}: grad norm", *(o[2]["grad_norm"] for o in outs))
+    hold(f"train step at batch {B}: updated parameters (all {n_params})",
+         *(leaves(o[0]) for o in outs))
+    del outs, o32, o64
+
+    rb = steps.synth_batch(cfg, din_serve.shape_spec("retrieval", DIN["check_retrieval"] // cut),
+                           seed=7)
+    with torch.no_grad():
+        scores = [din.retrieval_scores(p, cfg, steps.batch_to(rb, d)) for p, d in
+                  [(tr.params, dev), (p32, cpu), (p64, cpu)]]
+    ok = hold(f"retrieval scores over {scores[1].numel()} candidates", *scores)
+    tol, _ = checks.tolerance(scores[1], scores[2])
+    vals, idx = torch.topk(scores[0], DIN["top_k"])
+    for name, ref in [("CPU", scores[1]), ("float64", scores[2])]:
+        res = checks.check_topk(vals, idx, ref, tol)
+        check(ok and res["ok"], f"retrieval top {DIN['top_k']} of the card against the {name} "
+              f"scores (tol {tol:.3g}): values {res['value_err']:.3g}, each index's score "
+              f"{res['index_err']:.3g}, {res['sure']} candidates clear of ties all present "
+              f"(missing {res['missing']}), unique {res['unique']}")
+    print(f"  card against CPU and float64 in {time.perf_counter() - t0:.1f} s")
+    del params, tr, p32, p64, scores
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -316,6 +620,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     stats = {name: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
              for name in KERNEL_FILES}
     stats["flash_attention"].update(err=0.0, err_f32=0.0, bound_by="operations")
+    stats["embedding_bag"].update(err=0.0, excess=-BAG_TOL, err_bf16_ulps=0.0)
 
     # ------------------------------------------------------------------ #
     phase("1. card")
@@ -532,7 +837,17 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     launches["flash_attention"] = serve_full_width(torch, dev, small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase("9. kernels")
+    phase("9. embedding_bag against its plain version")
+    bag_cases(torch, np, dev, stats["embedding_bag"], small=device != "cuda")
+
+    # ------------------------------------------------------------------ #
+    phase(f"10. DIN at full width: train at batch {DIN['train_batch']}, serve at batch "
+          f"{' and '.join(map(str, DIN['serve']))}, retrieval over {DIN['n_candidates']} "
+          f"candidates")
+    launches["embedding_bag"] = din_full_width(torch, dev, small=device != "cuda")
+
+    # ------------------------------------------------------------------ #
+    phase("11. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]
@@ -547,6 +862,14 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
             ok = st["err"] < FLASH_TOL["bfloat16"] and st["err_f32"] < FLASH_TOL["float32"]
             entry.update(max_abs_err_f32=st["err_f32"], tolerance=FLASH_TOL,
                          check="within tolerance of plain" if ok else "MISMATCH")
+        if name == "embedding_bag":
+            # the per-case test of phase 9: |err| <= atol + rtol |want| for float32
+            ok = st["excess"] <= BAG_TOL and st["err_bf16_ulps"] <= 1.0
+            entry.update(max_excess=st["excess"], max_err_bf16_ulps=st["err_bf16_ulps"],
+                         tolerance={"float32": f"|err| <= atol + rtol |want|, rtol = atol = "
+                                    f"{BAG_TOL}", "bfloat16": "1 ulp of the output"},
+                         timed=st["timed"], check="within tolerance of plain" if ok else "MISMATCH")
+        check(entry["check"] != "MISMATCH", f"{name}: {entry['check']}")
         kernels.append(entry)
     print(f"smoke wall {time.perf_counter() - t_start:.1f} s")
     if failures:

@@ -3,7 +3,8 @@
 
 The port holds the configs of the architectures it runs: the dense LMs
 ``qwen1.5-0.5b`` (served at full width), and ``yi-34b`` (GQA) and
-``granite-34b`` (MQA, GELU MLP), whose ``SMOKE`` variants the tests use.
+``granite-34b`` (MQA, GELU MLP), whose ``SMOKE`` variants the tests use;
+and the recommender ``din`` (trained, served and retrieved at full width).
 For any other id ``get_config``/``get_smoke`` raise ``NotImplementedError``
 naming the ROADMAP.md item that will port it.
 """
@@ -18,12 +19,12 @@ _MODULES = {
     "yi-34b": "repro_torch.configs.yi_34b",
     "granite-34b": "repro_torch.configs.granite_34b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1p5_0p5b",
+    "din": "repro_torch.configs.din",
 }
 
 _NOT_PORTED = {
     "qwen2-moe-a2.7b": "ROADMAP.md Queue A item 17 (MoE)",
     "mixtral-8x22b": "ROADMAP.md Queue A items 17 and 18 (MoE; sliding-window attention)",
-    "din": "ROADMAP.md Queue A item 12 (seed ML stack: DIN serving is the next slice)",
     "mace": "ROADMAP.md Queue A item 12 (seed ML stack: models/gnn)",
     "graphcast": "ROADMAP.md Queue A item 12 (seed ML stack: models/gnn)",
     "schnet": "ROADMAP.md Queue A item 12 (seed ML stack: models/gnn)",

@@ -41,6 +41,7 @@ SOURCES = {
     "segment_sum": "segment_sum/csrc/segment_sum.cu",
     "kcore_hindex": "kcore_hindex/csrc/kcore_hindex.cu",
     "flash_attention": "flash_attention/csrc/flash_attention.cu",
+    "embedding_bag": "embedding_bag/csrc/embedding_bag.cu",
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,8 @@ Weights are drawn from ``--seed`` (``model.init_params``) and prompts from a
 generator seeded 1, as the reference draws its prompts from key 1. It
 prints the reference's two lines, then the card's name and power limit and
 the prefill and decode times. ``profile_serve`` runs prefill and decode
-under ``torch.profiler`` (``chip_smoke.py`` prints it).
+under ``torch.profiler`` (``chip_smoke.py`` prints it with
+``obs.profile.format_profile``).
 """
 
 from __future__ import annotations
@@ -105,15 +106,10 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *, forced: torch.Tens
 
 def profile_serve(params, cfg, prompts: torch.Tensor, gen: int, top: int = 8) -> dict:
     """Prefill ``prompts`` and decode ``gen - 1`` steps under ``torch.profiler``
-    on the card. For ``"prefill"`` and ``"decode"`` it returns the host wall
-    (ms, ended by a synchronize), the device busy time (ms, the sum of kernel
-    times: one stream, so kernels do not overlap), the idle share
-    ``1 - busy / wall``, the kernel launches, and the ``top`` kernels by
-    device time as ``(name, launches, ms)``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    on the card: ``obs.profile.profile_call``'s record for ``"prefill"`` and
+    for ``"decode"``."""
     from repro_torch.models.transformer import model as M
+    from repro_torch.obs.profile import profile_call
 
     dev = prompts.device
     if dev.type != "cuda":
@@ -121,23 +117,8 @@ def profile_serve(params, cfg, prompts: torch.Tensor, gen: int, top: int = 8) ->
     B, P = prompts.shape
     cache = M.init_kv_cache(cfg, B, P + gen, device=dev)
     out = {}
-
-    def measure(name, fn):
-        _sync(dev)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            result = fn()
-            _sync(dev)
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-        out[name] = {"wall_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
-                     "launches": sum(e.count for e in kernels),
-                     "top": [(e.key, e.count, e.self_device_time_total / 1e3) for e in ranked]}
-        return result
-
-    logits, cache = measure("prefill", lambda: M.prefill(params, cfg, prompts, cache=cache))
+    (logits, cache), out["prefill"] = profile_call(
+        lambda: M.prefill(params, cfg, prompts, cache=cache), dev, top)
     tok = logits.argmax(dim=-1, keepdim=True)
 
     def decode():
@@ -146,17 +127,8 @@ def profile_serve(params, cfg, prompts: torch.Tensor, gen: int, top: int = 8) ->
             step, _ = M.decode_step(params, cfg, t, cache, P + i)
             t = step.argmax(dim=-1, keepdim=True)
 
-    measure("decode", decode)
+    _, out["decode"] = profile_call(decode, dev, top)
     return out
-
-
-def format_profile(prof: dict) -> str:
-    lines = []
-    for phase, p in prof.items():
-        lines.append(f"{phase}: wall {p['wall_ms']:.3f} ms, device busy {p['device_ms']:.3f} ms, "
-                     f"idle {p['idle_share']:.1%}, {p['launches']} kernel launches")
-        lines += [f"  {ms:10.3f} ms {n:6d}x  {name[:100]}" for name, n, ms in p["top"]]
-    return "\n".join(lines)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -178,6 +150,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         from repro_torch.models.transformer.model import check_ported
 
         args.cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+        if args.cfg.family != "lm":
+            ap.error(f"--arch {args.arch} is a {args.cfg.family} model; this serves language "
+                     f"models (DIN: python -m repro_torch.launch.din_serve)")
         check_ported(args.cfg)
     except (NotImplementedError, KeyError) as e:
         ap.error(str(e).strip("'\""))

@@ -1,6 +1,7 @@
 """Observability of the port: the span tracer and the convergence flight
 recorder (stdlib + numpy copies of ``repro.obs.trace`` and
-``repro.obs.flight``)."""
+``repro.obs.flight``), and ``profile``, the device time of one call under
+``torch.profiler``."""
 
 from repro_torch.obs import flight, trace
 

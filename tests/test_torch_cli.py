@@ -110,3 +110,43 @@ def test_serve_cli_refuses_what_is_not_ported(arch, item):
     out = _run("repro_torch.launch.serve", "--arch", arch, "--device", "cpu")
     assert out.returncode == 2
     assert f"ROADMAP.md Queue A {item}" in out.stderr
+
+
+# ------------------------------ din_serve --------------------------------- #
+
+def test_din_serve_cli_on_the_cpu_prints_its_lines():
+    out = _run("repro_torch.launch.din_serve", "--smoke", "--device", "cpu", "--train-steps", "3",
+               "--batch", "64", "--n-candidates", "700", "--top-k", "5")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert len(lines) == 4
+    first, last = (float(x) for x in lines[0].removeprefix("train: loss ").split(" -> "))
+    assert 0 < first < 2 and 0 < last < 2
+    assert lines[1].startswith("serve batch=64: ") and " ms, mean ctr 0." in lines[1]
+    ids = json.loads(lines[2].removeprefix("retrieval top-5 candidate ids: "))
+    assert len(ids) == len(set(ids)) == 5 and all(0 <= i < 1024 for i in ids)
+    assert lines[3].startswith("device: cpu") and "din-smoke" in lines[3]
+    assert "peak device memory not measured" in lines[3]
+
+
+def test_din_serve_cli_names_the_serve_shape():
+    out = _run("repro_torch.launch.din_serve", "--smoke", "--device", "cpu", "--train-steps", "1",
+               "--n-candidates", "100", "--top-k", "3")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[1].startswith("serve_p99 batch=512: ")
+
+
+def test_din_serve_cli_without_a_card_fails_unless_cpu_is_asked():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.din_serve", "--smoke"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+             "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_serve_cli_sends_din_to_its_own_launcher():
+    out = _run("repro_torch.launch.serve", "--arch", "din", "--device", "cpu")
+    assert out.returncode == 2
+    assert "repro_torch.launch.din_serve" in out.stderr

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-decomposition through the k-core kernels, and serving through the flash
-kernel against the same weights served on the CPU.
+decomposition through the k-core kernels, serving through the flash kernel
+against the same weights served on the CPU, and DIN through the
+embedding-bag kernel against the CPU and a float64 evaluation.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is present;
 the file imports neither ``jax`` nor the reference, so it runs on a machine
@@ -13,14 +14,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import checks
 from repro_torch.core.bz import bz_core_numbers
 from repro_torch.core.kcore import kcore_decompose
 from repro_torch.graph import generators
 from repro_torch.configs import get_smoke
+from repro_torch.kernels.embedding_bag import ops as bag
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.kcore_hindex import ops as hk
 from repro_torch.kernels.segment_sum import ops as sk
-from repro_torch.launch import serve
+from repro_torch.launch import din_serve, serve
+from repro_torch.models.recsys import din, steps as din_steps
+from repro_torch.models.recsys.embedding_bag import bag_sum
+from repro_torch.optim import adamw_init
+from repro_torch.tree import leaves
 
 pytestmark = pytest.mark.gpu
 
@@ -141,3 +148,92 @@ def test_serve_on_the_card_matches_the_cpu(cuda):
         top = float(want.abs().max())
         tol = 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
         assert float((got.cpu() - want).abs().max()) <= tol
+
+
+# --------------------------- embedding bag -------------------------------- #
+
+def _bag_inputs(V, D, B, L, dtype, device, lo=-1, seed=0):
+    r = np.random.default_rng(seed + V + B + L)
+    table = torch.as_tensor(r.standard_normal((V, D), dtype=np.float32), device=device).to(dtype)
+    idx = torch.as_tensor(r.integers(lo, V, (B, L)).astype(np.int32), device=device)
+    return table, idx
+
+
+@pytest.mark.parametrize("V,D,B,L,dtype,lo", [
+    (100, 8, 4, 5, torch.float32, -1), (500, 24, 13, 7, torch.float32, -1),
+    (1000, 32, 32, 20, torch.float32, -1),                 # the reference's sweep
+    (10_000, 18, 512, 16, torch.float32, 0),               # DIN's context bag, serve_p99
+    (10_000, 18, 262_144, 16, torch.float32, 0),           # serve_bulk
+    (1_000_000, 18, 4096, 100, torch.float32, -1),         # the item table
+    (100, 18, 33, 1, torch.float32, -1), (100, 18, 7, 0, torch.float32, -1),
+    (1000, 32, 64, 20, torch.bfloat16, -1), (10_000, 18, 512, 16, torch.bfloat16, 0)])
+def test_bag_kernel_matches_plain(cuda, V, D, B, L, dtype, lo):
+    """float32 within rtol = atol = 1e-5 (tests/test_kernels.py:202); bf16
+    within one bf16 unit in the last place of the output (both sum in
+    float32, in other orders, and round once)."""
+    table, idx = _bag_inputs(V, D, B, L, dtype, cuda, lo)
+    if V == 100 and L == 1:
+        idx[::4] = -1
+    before = bag.launches
+    got = bag.embedding_bag_sum(table, idx)
+    torch.cuda.synchronize()
+    assert bag.launches == before + 1
+    assert got.shape == (B, D) and got.dtype == dtype
+    want = bag.embedding_bag_sum_ref(table, idx)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=2.0**-126))) - 7)
+        assert bool(((got.float() - want.float()).abs() <= ulp).all())
+    if L == 0:
+        assert not got.any()
+
+
+def test_bag_kernel_empty_batch_launches_nothing(cuda):
+    table, idx = _bag_inputs(100, 18, 0, 5, torch.float32, cuda)
+    before = bag.launches
+    assert bag.embedding_bag_sum(table, idx).shape == (0, 18)
+    assert bag.launches == before
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bag.embedding_bag_sum(table.double(), _bag_inputs(100, 18, 3, 5, torch.float32, cuda)[1])
+
+
+def test_bag_gradient_on_the_card_equals_autograd_through_plain(cuda):
+    table, idx = _bag_inputs(10_000, 18, 4096, 16, torch.float32, cuda)
+    c = torch.randn(4096, 18, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    a = table.clone().requires_grad_(True)
+    (bag_sum(a, idx) * c).sum().backward()
+    b = table.clone().requires_grad_(True)
+    (bag.embedding_bag_sum_ref(b, idx) * c).sum().backward()
+    torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------- DIN ------------------------------------ #
+
+def _hold(card, cpu, f64):
+    r = checks.hold(card, cpu, f64)
+    assert r["ok"], r
+
+
+def test_din_serve_and_a_train_step_on_the_card_match_the_cpu(cuda):
+    """The SMOKE config from the same weights and batches on the card, on the
+    CPU and in float64 on the CPU, held by ``checks.hold``; one bag
+    launch a serve step and a train step."""
+    cfg = get_smoke("din")
+    params = din.init_params(cfg, 0, cuda)
+    p32 = din.params_to(params, "cpu")
+    p64 = din.params_to(p32, dtype=torch.float64)
+    sb = din_steps.synth_batch(cfg, din_serve.shape_spec("serve", 256), seed=99)
+    bag.launches = 0
+    with torch.no_grad():
+        _hold(*(din.logits(p, cfg, din_steps.batch_to(sb, d))
+                for p, d in [(params, cuda), (p32, "cpu"), (p64, "cpu")]))
+    assert bag.launches == 1
+    tb = din_steps.synth_batch(cfg, din_serve.shape_spec("train", 512), seed=1)
+    step = din_steps.make_train_step(cfg)
+    outs = [step(p, adamw_init(p), din_steps.batch_to(tb, d))
+            for p, d in [(params, cuda), (p32, "cpu"), (p64, "cpu")]]
+    assert bag.launches == 2
+    _hold(*(o[2]["loss"] for o in outs))
+    _hold(*(o[2]["grad_norm"] for o in outs))
+    _hold(*(leaves(o[0]) for o in outs))

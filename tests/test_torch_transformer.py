@@ -178,6 +178,6 @@ def test_moe_and_sliding_window_are_not_ported_yet():
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A {item}"):
             PM.init_kv_cache(cfg, 1, 8, device="cpu")
     for arch, item in [("mixtral-8x22b", "items 17 and 18"), ("qwen2-moe-a2.7b", "item 17"),
-                       ("din", "item 12")]:
+                       ("schnet", "item 12")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A {item}"):
             get_config(arch)
