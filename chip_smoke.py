@@ -12,10 +12,13 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
 
 1. Card: the card's name and power limit, as ``nvidia-smi`` gives them.
 2. Build: the four kernels, for sm_90a, from the sources in this checkout, with
-   the compiler's register and shared-memory report.
+   the compiler's register, shared-memory and spill report and its warnings
+   (a serialised wgmma among them).
 3. Kernel against plain: each kernel bit-equal to its plain PyTorch version
-   on edge cases and at the main path's real shapes (every ELL bucket of
-   the soc-pokec analogue, and the segment sum over its 59.7M arcs), with
+   on edge cases (for ``kcore_hindex`` every variant's border width, probe
+   counts that stop a pass part way, and rows that take several passes) and
+   at the main path's real shapes (every ELL bucket of the soc-pokec
+   analogue, each timed, and the segment sum over its 59.7M arcs), with
    times from CUDA events beside the bytes bound and a library call.
 4. The BZ-checked Table-I suite (EEN, G31, FC, PTBR, MGF at scale 0.05): host
    loop and fused on the card, cores equal to BZ, bills equal between the two,
@@ -26,8 +29,10 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    launch counters read around these runs only.
 7. Flash attention against its plain version: the serve shape (bf16,
    B*H 128, S 2048, d 64, causal), a ragged S, GQA and MQA, a window, d 128,
-   float32, Sq != Sk and rows masked everywhere, within 2e-2 (bf16) and
-   2e-5 (float32); at the serve shape its time beside the plain version's,
+   float32, Sq != Sk, rows masked everywhere, head slices of one fused
+   projection read in place, and ``yi-34b``'s heads (56 over 8, d 128, S
+   2048), within 2e-2 (bf16) and 2e-5 (float32); at the serve shape and at
+   ``yi-34b``'s heads its time beside the plain version's,
    ``scaled_dot_product_attention``'s and the FLOP bound.
 8. LM serving: ``qwen1.5-0.5b`` at full width (24 layers, d_model 1024,
    vocab 151,936; weights drawn from seed 0) through
@@ -144,6 +149,25 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int, kernel: str):
+    """Mean device milliseconds per call of ``fn`` spent in the kernels whose
+    name holds ``kernel`` (``torch.profiler``'s CUDA activity, after a warm-up
+    call), or None off the card. Unlike ``time_ms`` it leaves out the host's
+    time to enqueue a launch, which sets the pace of a kernel faster than
+    that."""
+    if not torch.cuda.is_available():
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages() if kernel in e.key) / reps / 1e3
+
+
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -201,11 +225,20 @@ def flash_cases(torch, np, dev, st, small: bool = False) -> None:
         (2, 1024, 384, 16, 16, 64, True, None, torch.bfloat16, "Sq > Sk"),
         (1, 600, 200, 16, 4, 64, True, 64, torch.bfloat16, "rows masked everywhere"),
         (1, 300, 100, 4, 4, 64, True, 32, torch.float32, "float32, rows masked everywhere"),
+        (2, 333, 333, 8, 2, 64, True, None, torch.bfloat16, "views of one fused projection"),
+        (2, 2048, 2048, 56, 8, 128, True, None, torch.bfloat16, "yi-34b heads, d 128"),
     ]
     for B, Sq, Sk, Hq, Hkv, d, causal, window, dtype, label in cases:
         if small:
             Sq, Sk, window = Sq // 8, Sk // 8, window and window // 8
-        q, k, v = qkv(B, Sq, Sk, Hq, Hkv, d, dtype)
+        if label == "views of one fused projection":   # read in place through the strides
+            x = torch.as_tensor(rng.standard_normal((B, Sq, Hq + 2 * Hkv, d), dtype=np.float32),
+                                device=dev).to(dtype)
+            q, k, v = x[:, :, :Hq], x[:, :, Hq:Hq + Hkv], x[:, :, Hq + Hkv:]
+            check(all(fa._kernel_layout(t) is t for t in (q, k, v)),
+                  "the fused projection's head slices go to the kernel without a copy")
+        else:
+            q, k, v = qkv(B, Sq, Sk, Hq, Hkv, d, dtype)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = plain(q, k, v, causal, window)
         err = float((got.float() - want.float()).abs().max())
@@ -222,21 +255,36 @@ def flash_cases(torch, np, dev, st, small: bool = False) -> None:
             row_err = float((got[:, first:].float() - mean_v[:, None]).abs().max())
             msg += f"; rows >= {first} are the mean of v (max|err| {row_err:.3g})"
             ok = ok and row_err < tol
-        if label == "serve shape":
+        if label in ("serve shape", "yi-34b heads, d 128"):
             flop = 4 * B * Hq * d * pairs(Sq, Sk, causal, window)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             bnd = max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
             ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 20)
+            dev_ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 5,
+                               "flash_")
             plain_ms = time_ms(torch, lambda: plain(q, k, v, True, None), 3, warmup=1)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            # the yardstick reads k and v repeated to Hq heads beforehand (its GQA path is not
+            # what is compared)
+            qt, kt, vt = (t.transpose(1, 2) for t in
+                          (q, k.repeat_interleave(Hq // Hkv, dim=2),
+                           v.repeat_interleave(Hq // Hkv, dim=2)))
             lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
                           20)
+            lib_dev = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 5, "")
             lib_err = float((F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
                              .transpose(1, 2).float() - want.float()).abs().max())
-            st.update(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd)
-            msg += (f"; {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-                    f"scaled_dot_product_attention {lib:.4f} ms (its max|err| {lib_err:.3g}), "
-                    f"bound {bnd:.4f} ms ({flop:.4g} FLOP, {nbytes} bytes), {bnd / ms:.1%} of it")
+            st.setdefault("timed", {})[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                                     library_ms=lib, library_device_ms=lib_dev,
+                                                     bound_ms=bnd, tflops=flop / ms / 1e9)
+            if label == "serve shape":
+                st.update(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=bnd)
+            msg += (f"; {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s; {dev_ms or 0.0:.4f} ms on the "
+                    f"device), plain {plain_ms:.3f} ms, scaled_dot_product_attention {lib:.4f} ms "
+                    f"({flop / lib / 1e9:.1f} TFLOP/s; {lib_dev or 0.0:.4f} ms on the device; its "
+                    f"max|err| {lib_err:.3g}), bound {bnd:.4f} ms ({flop:.4g} FLOP, {nbytes} "
+                    f"bytes), {bnd / ms:.1%} of it")
+            del qt, kt, vt
         check(ok, msg)
         del q, k, v, got, want
 
@@ -619,6 +667,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     rng = np.random.default_rng(0)
     stats = {name: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
              for name in KERNEL_FILES}
+    stats["kcore_hindex"].update(buckets=[], device_ms=0.0)
     stats["flash_attention"].update(err=0.0, err_f32=0.0, bound_by="operations")
     stats["embedding_bag"].update(err=0.0, excess=-BAG_TOL, err_bf16_ulps=0.0)
 
@@ -642,7 +691,8 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
               f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())})")
         for name in KERNEL_FILES:
             for line in _build.ptxas_log(name).splitlines():
-                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                if any(w in line for w in ("Compiling entry", "registers", "spill", "wgmma",
+                                           "arning")):
                     print(f"  {name}: {line.strip()}")
             check("sm_90a" in _build.ptxas_log(name), f"{name} compiled for sm_90a")
 
@@ -674,20 +724,34 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
         if timed:
             reps = max(3, min(200, int(2e9 // max(nbr.numel() * 4, 1))))
             ms = time_ms(torch, lambda: hk.hindex_rows(nbr, est_u, n_iters), reps)
+            dev_ms = device_ms(torch, lambda: hk.hindex_rows(nbr, est_u, n_iters), 5, "hindex")
             plain = time_ms(torch, lambda: hk.hindex_rows_ref(nbr, est_u, n_iters), 3, warmup=1)
             bnd = bound_ms(4 * nbr.numel() + 8 * nbr.shape[0])
             st["ms"] += ms
+            st["device_ms"] += dev_ms or 0.0
             st["plain_ms"] += plain
             st["bound_ms"] += bnd
-            msg += f": {ms:.4f} ms (plain {plain:.3f} ms, bound {bnd:.4f} ms, {bnd / ms:.1%} of it)"
+            st["buckets"].append({"W": nbr.shape[1], "R": nbr.shape[0], "ms": ms,
+                                  "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bnd})
+            msg += (f": {ms:.4f} ms a call, {dev_ms or 0.0:.4f} ms on the device (plain "
+                    f"{plain:.3f} ms, bound {bnd:.4f} ms, {bnd / ms:.1%} of the call, "
+                    f"{bnd / (dev_ms or ms):.1%} of the device time)")
         check(err == 0, msg)
 
     def ints(lo, hi, shape):
         return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32), device=dev)
 
-    for rows, width, hi, n_iters in [(1, 8, 50, 7), (1001, 8, 50, 7), (130, 17, 50, 7),
-                                     (64, 32, 50, 3), (77, 2048, 3000, 13), (5, 2049, 3000, 13),
-                                     (3, 98432, 100000, 18), (40, 600, 50, 2)]:
+    # every variant's border width (a thread a row to 8 and to 32 slots, 8 threads to 128, a
+    # warp to 512 and to 2048, a block beyond); probe counts that stop the replay part way;
+    # rows whose h-index lies above the block variant's 8192-bin window (several passes)
+    for rows, width, hi, n_iters in [(1, 8, 50, 7), (1001, 8, 50, 7), (9, 9, 50, 5),
+                                     (130, 17, 50, 7), (64, 32, 50, 3), (33, 33, 100, 6),
+                                     (65, 128, 300, 9), (65, 129, 300, 9), (17, 512, 1000, 11),
+                                     (17, 513, 1000, 11), (77, 2048, 3000, 13), (5, 2049, 3000, 13),
+                                     (3, 98432, 100000, 18), (1, 98432, 100000, 0),
+                                     (1, 98432, 100000, 1), (1, 98432, 100000, 5),
+                                     (1, 98432, 100000, 17), (1, 98432, 100000, 19),
+                                     (4, 20000, 30000, 11), (40, 600, 50, 2)]:
         hindex_case(ints(0, hi, (rows, width)), ints(0, hi, rows), n_iters, "edge case")
     nbr = ints(0, 50, (33, 128))
     hindex_case(nbr, torch.zeros(33, dtype=torch.int32, device=dev), 7, "zero estimates")
@@ -858,9 +922,11 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
             "bound_by": st.get("bound_by", "bytes"), "library_ms": st["library_ms"],
             "check": "bit-equal to plain" if st["err"] == 0 else "MISMATCH",
         }
+        if name == "kcore_hindex":
+            entry.update(device_ms=st["device_ms"], buckets=st["buckets"])
         if name == "flash_attention":
             ok = st["err"] < FLASH_TOL["bfloat16"] and st["err_f32"] < FLASH_TOL["float32"]
-            entry.update(max_abs_err_f32=st["err_f32"], tolerance=FLASH_TOL,
+            entry.update(max_abs_err_f32=st["err_f32"], tolerance=FLASH_TOL, timed=st["timed"],
                          check="within tolerance of plain" if ok else "MISMATCH")
         if name == "embedding_bag":
             # the per-case test of phase 9: |err| <= atol + rtol |want| for float32

@@ -11,10 +11,12 @@ kernel's launches and nothing else.
 
 The kernel takes the batch, sequence and head strides of each input, so the
 ``(B, S, H, d)`` projections go in without a ``.contiguous()`` copy. Only an
-input whose last dimension is strided, or whose rows are not 16-byte aligned
-(the kernel's vector loads), is copied first. On the card d must be one of
+input whose last dimension is strided, whose rows are not 16-byte aligned
+(the kernel's vector loads and tensor maps), or that repeats rows through a
+zero stride, is copied first. On the card d must be one of
 ``KERNEL_HEAD_DIMS``; bfloat16 with d of 64 or 128 runs the tensor-core
-(``mma.sync``) kernel, everything else the float32 CUDA-core kernel.
+kernel (``wgmma``, K/V tiles brought in by TMA), everything else the
+float32 CUDA-core kernel.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where the kernel can read it in place, else a compact copy."""
     size = t.element_size()
     if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-            and all((s * size) % 16 == 0 for s in t.stride()[:3]):
+            and all((s * size) % 16 == 0 and (s > 0 or n == 1)
+                    for s, n in zip(t.stride()[:3], t.shape[:3])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 

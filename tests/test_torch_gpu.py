@@ -53,6 +53,25 @@ def test_hindex_kernel_matches_plain(cuda, rows, width, n_iters):
     assert torch.equal(got, hk.hindex_rows_ref(nbr, est, n_iters))
 
 
+@pytest.mark.parametrize("rows,width,hi,n_iters", [
+    (1, 98432, 100000, 0), (1, 98432, 100000, 1), (1, 98432, 100000, 5),
+    (1, 98432, 100000, 13), (1, 98432, 100000, 17), (1, 98432, 100000, 19),
+    (2, 98432, 3000, 17), (3, 98432, 9000, 14), (4, 20000, 30000, 16), (4, 20000, 30000, 7),
+    (9, 32, 100, 5), (9, 33, 100, 6), (65, 128, 300, 9), (65, 129, 300, 9),
+    (17, 512, 1000, 11), (17, 513, 1000, 11), (7, 2048, 5000, 19), (5, 2049, 3000, 11)])
+def test_hindex_kernel_at_the_wide_variants_edges(cuda, rows, width, hi, n_iters):
+    """Every variant's border width, probe counts that stop a pass part way,
+    R = 1, W = 98,432, and rows whose h-index lies above the block variant's
+    8192-bin window (several passes)."""
+    r = np.random.default_rng(rows * 7 + width + n_iters)
+    nbr = torch.as_tensor(r.integers(0, hi, (rows, width)).astype(np.int32), device=cuda)
+    est = torch.as_tensor(r.integers(hi // 2, hi, rows).astype(np.int32), device=cuda)
+    est[0] = hi
+    got = hk.hindex_rows(nbr, est, n_iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hk.hindex_rows_ref(nbr, est, n_iters))
+
+
 @pytest.mark.parametrize("E,n", [(1, 17), (33, 1), (100_001, 70_000), (1_000_000, 3)])
 def test_segment_sum_kernel_matches_plain(cuda, E, n):
     r = np.random.default_rng(E)
@@ -94,6 +113,13 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
     (1, 65, 33, 2, 2, 128, False, 9, torch.float32),
     (2, 40, 40, 4, 4, 16, True, None, torch.bfloat16),       # small d: CUDA-core kernel
     (1, 50, 50, 8, 2, 8, True, 7, torch.float32),
+    # the wgmma kernel: 128-row q tiles, 128-key (d 64) or 64-key (d 128) kv tiles
+    (1, 129, 129, 4, 4, 64, True, None, torch.bfloat16),     # one row past a q tile
+    (1, 200, 333, 2, 2, 128, False, None, torch.bfloat16),   # Sq, Sk off the tiles
+    (2, 300, 300, 8, 4, 128, True, 100, torch.bfloat16),     # d 128, GQA rep 2, window
+    (1, 257, 257, 4, 1, 128, True, None, torch.bfloat16),    # d 128, MQA
+    (1, 100, 20, 4, 2, 128, True, 8, torch.bfloat16),        # d 128, rows masked everywhere
+    (1, 700, 260, 4, 4, 64, True, 70, torch.bfloat16),       # masked everywhere past row 328
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, Hq, Hkv, D, causal, window, dtype):
     r = np.random.default_rng(Sq * 1000 + Sk + D)
@@ -128,6 +154,25 @@ def test_flash_kernel_reads_strided_views_in_place(cuda):
     got = fa.flash_attention(q, k, v, causal=True)
     want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 8, 2), (128, 4, 4)])
+def test_flash_kernel_on_views_of_one_fused_projection(cuda, D, Hq, Hkv):
+    """q, k and v as head slices of one (B, S, Hq + 2 Hkv, d) projection: the
+    tensor maps read them through their strides, with no copy."""
+    r = np.random.default_rng(D + Hq)
+    B, S = 2, 333
+    qkv = torch.as_tensor(r.standard_normal((B, S, Hq + 2 * Hkv, D), dtype=np.float32),
+                          device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    assert all(fa._kernel_layout(t) is t for t in (q, k, v))
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fa.attention_ref(q.transpose(1, 2).reshape(B * Hq, S, D),
+                            k.transpose(1, 2).reshape(B * Hkv, S, D),
+                            v.transpose(1, 2).reshape(B * Hkv, S, D), causal=True)
+    want = want.reshape(B, Hq, S, D).transpose(1, 2)
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[torch.bfloat16]
 
 
 def test_serve_on_the_card_matches_the_cpu(cuda):

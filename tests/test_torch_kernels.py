@@ -70,6 +70,120 @@ def test_hindex_random_tiles(seed):
     np.testing.assert_array_equal(got, np.asarray(jax_hindex_sorted(jnp.asarray(nbr), jnp.asarray(est))))
 
 
+# The CUDA kernel's wide-row passes (csrc/kcore_hindex.cu, W > 2048), modelled
+# in numpy and held against the reference at every variant's border width. A
+# pass bins the row, clipped at cap = min(est_u, W), into a window of unit bins
+# [base, base + nb) plus one count of everything above it; the probes are
+# replayed from the suffix counts until one falls where the window cannot
+# decide it, and the next pass moves the window. Nothing on the main path
+# calls this model.
+
+KERNEL_WINDOW = 8192   # kcore_hindex.cu's kWindow
+
+
+def _replay(S, base, nb, n_iters, lo, hi, it):
+    """Probes from (lo, hi, it) against S[i] = #{v >= base + i}, i in [0, nb];
+    (done, lo, hi, it), done False at a probe the window does not decide."""
+    while it < n_iters and lo < hi:
+        mid = (lo + hi + 1) // 2
+        i = max(mid, 1) - base
+        if i < 0:                     # C(k) >= C(base)
+            if S[0] < mid:
+                return False, lo, hi, it
+            ok = True
+        elif i > nb:                  # C(k) <= C(base + nb)
+            if S[nb] >= mid:
+                return False, lo, hi, it
+            ok = False
+        else:
+            ok = S[i] >= mid
+        lo, hi = (mid, hi) if ok else (lo, mid - 1)
+        it += 1
+    return True, lo, hi, it
+
+
+def _model_hindex_rows(nbr, est, n_iters, window=KERNEL_WINDOW):
+    """The kernel's answer and the passes it makes over each row."""
+    out, passes = [], []
+    for row, eu in zip(nbr.astype(np.int64), est.astype(np.int64)):
+        cap = min(int(eu), nbr.shape[1])
+        v = np.minimum(row, cap)
+        lo, hi, it, base, n_pass = 0, int(eu), 0, 1, 0
+        while it < n_iters and lo < hi:
+            nb = min(window, max(0, cap - base + 1))
+            i = v - base
+            hist = np.bincount(i[(i >= 0) & (i < nb)], minlength=nb)
+            over = int((i >= nb).sum())
+            S = np.append(np.cumsum(hist[::-1])[::-1] + over, over)
+            n_pass += 1
+            done, lo, hi, it = _replay(S, base, nb, n_iters, lo, hi, it)
+            if done:
+                break
+            mid = (lo + hi + 1) // 2
+            base = lo + 1 if hi - lo <= window else max(lo + 1, mid - window // 2)
+        out.append(lo)
+        passes.append(n_pass)
+    return np.array(out, np.int32), np.array(passes)
+
+
+def _border_tile(width, seed):
+    """Rows at a variant's border width: random values and estimates, est_u
+    above W, zero estimates, a row of zeros and a row of equal values."""
+    r = np.random.default_rng(seed)
+    rows = 12
+    nbr = r.integers(0, 3 * width, (rows, width)).astype(np.int32)
+    est = r.integers(0, 3 * width, rows).astype(np.int32)
+    est[0], est[1], est[2] = 0, 3 * width + 7, 2**16     # zero, and far above W
+    nbr[3] = 0
+    nbr[4] = width // 2
+    est[5] = 1
+    return nbr, est
+
+
+@pytest.mark.parametrize("width", [8, 9, 32, 33, 2048, 2049])
+def test_hindex_window_model_matches_the_reference_for_every_n_iters(width):
+    nbr, est = _border_tile(width, width)
+    for n_iters in range(21):
+        got, passes = _model_hindex_rows(nbr, est, n_iters)
+        want = np.asarray(jax_hindex_bsearch(jnp.asarray(nbr), jnp.asarray(est), n_iters))
+        np.testing.assert_array_equal(got, want, err_msg=f"n_iters={n_iters}")
+        np.testing.assert_array_equal(got, _port_hindex(nbr, est, n_iters))
+        assert passes.max() <= 1         # cap <= 8192: the first window decides every probe
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_sorted(jnp.asarray(nbr), jnp.asarray(est))))
+
+
+@pytest.mark.parametrize("window", [1, 4, 16, 100])
+def test_hindex_window_model_moves_its_window_exactly(window):
+    """Small windows force the passes that move the window (centred on an
+    undecided probe, or over the whole interval left)."""
+    r = np.random.default_rng(window)
+    nbr = r.integers(0, 400, (16, 300)).astype(np.int32)
+    est = r.integers(0, 500, 16).astype(np.int32)
+    est[0] = 0
+    nbr[1, :] = 299
+    for n_iters in (0, 1, 3, 7, 9, 10, 13):
+        got, passes = _model_hindex_rows(nbr, est, n_iters, window)
+        want = np.asarray(jax_hindex_bsearch(jnp.asarray(nbr), jnp.asarray(est), n_iters))
+        np.testing.assert_array_equal(got, want, err_msg=f"n_iters={n_iters}")
+    assert passes.max() > 1
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_sorted(jnp.asarray(nbr), jnp.asarray(est))))
+
+
+def test_hindex_window_model_wide_row_beyond_the_kernel_window():
+    """A row whose h-index lies far above 8192 takes several passes at the
+    kernel's own window; the answer stays the reference's for partial and
+    full probe counts."""
+    r = np.random.default_rng(7)
+    nbr = r.integers(0, 30000, (2, 20000)).astype(np.int32)
+    est = np.array([30000, 12000], np.int32)
+    for n_iters in (2, 5, 11, 16):
+        got, passes = _model_hindex_rows(nbr, est, n_iters)
+        want = np.asarray(jax_hindex_bsearch(jnp.asarray(nbr), jnp.asarray(est), n_iters))
+        np.testing.assert_array_equal(got, want, err_msg=f"n_iters={n_iters}")
+    assert passes[0] > 1
+    np.testing.assert_array_equal(got, np.asarray(jax_hindex_sorted(jnp.asarray(nbr), jnp.asarray(est))))
+
+
 def _jax_ell_round(g, est, n_iters):
     """One h-index round of the reference's Pallas ELL route (interpret mode)."""
     from repro.graph.structs import build_ell as jax_build_ell
