@@ -19,7 +19,12 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    counts that stop a pass part way, and rows that take several passes) and
    at the main path's real shapes (every ELL bucket of the soc-pokec
    analogue, each timed, and the segment sum over its 59.7M arcs), with
-   times from CUDA events beside the bytes bound and a library call.
+   times from CUDA events and device times from ``torch.profiler`` beside
+   the bytes bound and a library call. The segment sum's edge cases include
+   one 98,432-arc row among 10^6 empty rows, a ``vals`` view 4 bytes off a
+   16-byte boundary, E not a multiple of 4, E = 0 and rows of one arc; two
+   more timed cases split its SPR time by degree: the widest row alone, and
+   the arcs without the rows wider than 2,048.
 4. The BZ-checked Table-I suite (EEN, G31, FC, PTBR, MGF at scale 0.05): host
    loop and fused on the card, cores equal to BZ, bills equal between the two,
    and ``benchmarks/static_baseline.json``'s message ratios reproduced.
@@ -53,10 +58,14 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    (indices in [-1, V)), bags that are all padding, L = 1, B = 0, L = 0, a
    bf16 table, DIN's context bag at ``serve_p99`` and ``serve_bulk`` (table
    10,000 x 18, indices (B, 16)), and the 1,000,000 x 18 item table under
-   Zipf indices (65,536, 100) with -1 padding; within rtol = atol = 1e-5 in
+   Zipf indices (65,536, 100) with -1 padding, every row-read width the
+   kernel picks (D = 17, 18, 32; table views one element and one row into
+   their buffers), L = 1, 15, 17 and 100, bf16 at D = 18 and B not a
+   multiple of the bags a block takes; within rtol = atol = 1e-5 in
    float32 (``tests/test_kernels.py:202``) and one bf16 unit in the last
-   place of the output in bf16. At the two DIN shapes its time beside the
-   plain version's, ``F.embedding_bag``'s and the bytes bound.
+   place of the output in bf16. At the two DIN shapes its time a call and
+   on the device beside the plain version's, ``F.embedding_bag``'s and the
+   bytes bound.
 10. DIN at full width (``configs/din.py``: 10^6 x 18 item table, history of
    100, MLPs 80-40 and 200-80; weights drawn from seed 0 on the card)
    through ``repro_torch.launch.din_serve``'s functions: 3 train steps at
@@ -74,9 +83,14 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    largest magnitude compared); the top 100 are compared allowing for ties
    (``checks.check_topk``).
 
-It then prints the ``kernels`` JSON line and, last, the ``ok`` line. It exits
-non-zero, without the ``ok`` line, if any check fails, if no CUDA device is
-present, or if ``src/repro_torch`` is not beside it. It imports neither
+11. The ``kernels`` JSON line: each kernel's launches in the main path's
+   runs, its largest error against its plain version, its time a call and
+   on the device (flash attention's under ``timed``), the plain version's,
+   the library call's and the bound.
+
+It then prints the card line, the ``kernels`` JSON line and, last, the ``ok``
+line. It exits non-zero, without the ``ok`` line, if any check fails, if no
+CUDA device is present, or if ``src/repro_torch`` is not beside it. It imports neither
 ``jax`` nor the reference package.
 """
 
@@ -154,18 +168,28 @@ def device_ms(torch, fn, reps: int, kernel: str):
     name holds ``kernel`` (``torch.profiler``'s CUDA activity, after a warm-up
     call), or None off the card. Unlike ``time_ms`` it leaves out the host's
     time to enqueue a launch, which sets the pace of a kernel faster than
-    that."""
+    that. The trace may miss the first launches of a window (it held 4 of 5
+    or 7 of 10 on the H100), so the calls are counted as the launches of the
+    most launched of those kernels that it holds; a short trace is reported,
+    and an empty one taken again, up to three times."""
     if not torch.cuda.is_available():
         return None
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages() if kernel in e.key) / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if kernel in e.key and e.device_time_total > 0]
+        calls = max((e.count for e in found), default=0)
+        if calls != reps:
+            print(f"  (the trace holds {calls} of {reps} calls' launches of {kernel!r})")
+        if calls:
+            return sum(e.device_time_total for e in found) / calls / 1e3
+    return None
 
 
 def bound_ms(nbytes: int) -> float:
@@ -396,6 +420,10 @@ def bag_cases(torch, np, dev, st, small: bool = False) -> None:
         idx = np.where(np.arange(L)[None, :] < lens[:, None], idx, -1)
         return torch.as_tensor(idx.astype(np.int32), device=dev)
 
+    def offset_view(flat, V, D):
+        """A (V, D) view whose base lies one element into ``flat``'s buffer."""
+        return flat.view(-1)[1:1 + V * D].view(V, D)
+
     all_pad = ints(-1, 50, (9, 6))
     all_pad[::3] = -1
     cases = [  # table, indices, label, timed
@@ -414,6 +442,21 @@ def bag_cases(torch, np, dev, st, small: bool = False) -> None:
          True),
         (table(1_000_000 // cut, 18), zipf_hist(1_000_000 // cut, 65_536 // cut, 100),
          "item table, Zipf history", False),
+        # rows read 4, 8 and 16 bytes at a time, and bases that allow only 4 or 16; L around the
+        # unrolled step and the staged tile; bf16 at DIN's width; B not a multiple of the 24
+        # bags a block takes at D = 18
+        (table(1000, 17), ints(-1, 1000, (301, 16)), "D = 17", False),
+        (table(1000, 18), ints(-1, 1000, (301, 16)), "D = 18", False),
+        (table(1000, 32), ints(-1, 1000, (301, 16)), "D = 32", False),
+        (offset_view(table(1001 * 18 + 1, 1), 1000, 18), ints(-1, 1000, (301, 16)),
+         "a table view 4 bytes off its buffer", False),
+        (table(1000, 32)[1:], ints(-1, 999, (99, 16)), "a table view one row in", False),
+        (table(1000, 18), ints(-1, 1000, (97, 1)), "L = 1", False),
+        (table(1000, 18), ints(-1, 1000, (97, 15)), "L = 15", False),
+        (table(1000, 18), ints(-1, 1000, (97, 17)), "L = 17", False),
+        (table(1000, 18), ints(-1, 1000, (97, 100)), "L = 100", False),
+        (table(10_000, 18, torch.bfloat16), ints(-1, 10_000, (1001, 16)), "bf16, D = 18", False),
+        (table(10_000, 18), ints(0, 10_000, (24 * 41 + 1, 16)), "B = 24 * 41 + 1", False),
     ]
     for tab, idx, label, timed in cases:
         got = bag.embedding_bag_sum(tab, idx)
@@ -452,6 +495,7 @@ def bag_cases(torch, np, dev, st, small: bool = False) -> None:
             lib_err = float((lib_out - want).abs().max())
             reps = 200 if B < 10_000 else 50
             ms = time_ms(torch, lambda: bag.embedding_bag_sum(tab, idx), reps)
+            dev_ms = device_ms(torch, lambda: bag.embedding_bag_sum(tab, idx), 10, "bag_sum")
             plain = time_ms(torch, lambda: bag.embedding_bag_sum_ref(tab, idx), 10)
             lib = time_ms(torch, lambda: F.embedding_bag(safe, tab, mode="sum",
                                                          per_sample_weights=weight), reps)
@@ -459,14 +503,15 @@ def bag_cases(torch, np, dev, st, small: bool = False) -> None:
             nbytes = idx.numel() * 4 + got.numel() * got.element_size() \
                 + rows * tab.shape[1] * tab.element_size()
             bnd = bound_ms(nbytes)
-            st.setdefault("timed", {})[label] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                                     bound_ms=bnd)
+            st.setdefault("timed", {})[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                                     library_ms=lib, bound_ms=bnd)
             if "serve_bulk" in label:
-                st.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd)
-            msg += (f"; {ms:.4f} ms, plain {plain:.4f} ms, F.embedding_bag {lib:.4f} ms (its "
-                    f"max|err| {lib_err:.3g}; indices clamped and masked beforehand), bound "
-                    f"{bnd:.4f} ms ({nbytes} bytes: indices, output, {rows} table rows), "
-                    f"{bnd / ms:.1%} of it")
+                st.update(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib, bound_ms=bnd)
+            msg += (f"; {ms:.4f} ms a call, {dev_ms or 0.0:.4f} ms on the device, plain "
+                    f"{plain:.4f} ms, F.embedding_bag {lib:.4f} ms (its max|err| {lib_err:.3g}; "
+                    f"indices clamped and masked beforehand), bound {bnd:.4f} ms ({nbytes} bytes: "
+                    f"indices, output, {rows} table rows), {bnd / ms:.1%} of the call, "
+                    f"{bnd / (dev_ms or ms):.1%} of the device time")
         check(ok, msg)
         del got, want, diff
 
@@ -668,8 +713,9 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     stats = {name: {"err": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
              for name in KERNEL_FILES}
     stats["kcore_hindex"].update(buckets=[], device_ms=0.0)
+    stats["segment_sum"].update(device_ms=None, timed={})
     stats["flash_attention"].update(err=0.0, err_f32=0.0, bound_by="operations")
-    stats["embedding_bag"].update(err=0.0, excess=-BAG_TOL, err_bf16_ulps=0.0)
+    stats["embedding_bag"].update(err=0.0, excess=-BAG_TOL, err_bf16_ulps=0.0, device_ms=None)
 
     # ------------------------------------------------------------------ #
     phase("1. card")
@@ -768,7 +814,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
                         f"SPR bucket, {est_name},", timed=est_name == "degree seed")
             del nbr_est
 
-    def segsum_case(vals, row_ptr, label, timed=False, seg_ids=None):
+    def segsum_case(vals, row_ptr, label, timed=False, seg_ids=None, main=False):
         got = sk.segment_sum(vals, row_ptr)
         want = sk.segment_sum_ref(vals, row_ptr)
         err = max_err(torch, got, want)
@@ -778,19 +824,49 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
         msg = f"segment_sum {label} E={vals.numel()} n={n} bit-equal"
         if timed:
             ms = time_ms(torch, lambda: sk.segment_sum(vals, row_ptr), 50)
+            dev_ms = device_ms(torch, lambda: sk.segment_sum(vals, row_ptr), 5, "segment_sum")
             plain = time_ms(torch, lambda: sk.segment_sum_ref(vals, row_ptr), 5)
             lib = time_ms(torch, lambda: torch.zeros(n, dtype=torch.int32, device=dev)
                           .index_add_(0, seg_ids, vals), 20)
             bnd = bound_ms(4 * vals.numel() + 8 * (n + 1) + 4 * n)
-            st.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd)
-            msg += f": {ms:.4f} ms (plain {plain:.3f} ms, index_add_ {lib:.4f} ms, " \
-                   f"bound {bnd:.4f} ms, {bnd / ms:.1%} of it)"
+            st["timed"][label] = dict(E=vals.numel(), n=n, ms=ms, device_ms=dev_ms,
+                                      plain_ms=plain, library_ms=lib, bound_ms=bnd)
+            if main:
+                st.update(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib, bound_ms=bnd)
+                # the wrapper's three kernels: the blocks' starts, the merge path, the carries
+                split = {k: device_ms(torch, lambda: sk.segment_sum(vals, row_ptr), 5, k)
+                         for k in ("path_search", "merge_path", "carries")}
+                st["timed"][label]["device_ms_by_kernel"] = split
+                print(f"  segment_sum {label} on the device by kernel: "
+                      + ", ".join(f"{k} {v or 0.0:.4f} ms" for k, v in split.items()))
+            msg += (f": {ms:.4f} ms a call, {dev_ms or 0.0:.4f} ms on the device (plain "
+                    f"{plain:.3f} ms, index_add_ {lib:.4f} ms, bound {bnd:.4f} ms, {bnd / ms:.1%} "
+                    f"of the call, {bnd / (dev_ms or ms):.1%} of the device time)")
         check(err == 0, msg)
+
+    def csr(lengths):
+        row_ptr = np.zeros(len(lengths) + 1, np.int64)
+        np.cumsum(lengths, out=row_ptr[1:])
+        return torch.as_tensor(row_ptr, device=dev)
 
     for e, n in [(1, 17), (0, 5), (33, 1), (1000, 10), (100_001, 70_000), (1_000_000, 3)]:
         layout = sk.csr_layout(np.sort(rng.integers(0, n, e)), n)
         segsum_case(ints(-2**31, 2**31, e), torch.as_tensor(layout.row_ptr, device=dev),
                     "edge case (wrapping sums, empty rows)")
+    # one SPR-wide row among 10^6 empty rows; a view 4 bytes off a 16-byte boundary; E not a
+    # multiple of 4; no arcs at all; runs of empty rows at both ends; rows of one arc
+    wide = np.zeros(1_000_001, np.int64)
+    wide[500_000] = 98_432
+    segsum_case(ints(-2**31, 2**31, 98_432), csr(wide), "one 98,432-arc row among 10^6 empty rows")
+    lengths = rng.integers(0, 40, 30_001)
+    lengths[:1000] = lengths[-1000:] = 0
+    x = ints(-2**31, 2**31, int(lengths.sum()) + 1)
+    segsum_case(x[1:], csr(lengths), "a view of vals 4 bytes off 16, empty rows at both ends")
+    odd = lengths.copy()
+    odd[15_000] += 3 - int(odd.sum()) % 4 + 4          # E = 3 mod 4
+    for lens, label in [(odd, "E not a multiple of 4"), (np.zeros(1_000_000, np.int64), "E = 0"),
+                        (np.ones(1_000_003, np.int64), "every row one arc")]:
+        segsum_case(ints(-2**31, 2**31, int(lens.sum())), csr(lens), label)
     ids = rng.integers(0, 1000, 5000)
     layout = sk.csr_layout(ids, 1000)
     vals = ints(0, 2**20, 5000)
@@ -802,8 +878,18 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     src64 = torch.as_tensor(g.src.astype(np.int64), device=dev)
     spr_vals = ints(0, 2, g.num_arcs)
     segsum_case(spr_vals, torch.as_tensor(g.offsets, device=dev), "SPR arcs", timed=True,
-                seg_ids=src64)
-    del src64, spr_vals
+                seg_ids=src64, main=True)
+    # the degree skew alone: the widest SPR row by itself, and the SPR arcs without the rows
+    # wider than 2,048 (those rows kept, empty)
+    top = int(np.argmax(g.deg))
+    s, e = int(g.offsets[top]), int(g.offsets[top + 1])
+    segsum_case(spr_vals[s:e].clone(), torch.as_tensor([0, e - s], device=dev),
+                "the widest SPR row alone", timed=True,
+                seg_ids=torch.zeros(e - s, dtype=torch.int64, device=dev))
+    narrow = torch.as_tensor(np.repeat(g.deg <= 2048, g.deg), device=dev)
+    segsum_case(spr_vals[narrow], csr(np.where(g.deg <= 2048, g.deg, 0)),
+                "SPR arcs without the rows wider than 2,048", timed=True, seg_ids=src64[narrow])
+    del src64, spr_vals, narrow
 
     # ------------------------------------------------------------------ #
     phase(f"4. BZ-checked Table-I suite at scale {TABLE_I_SCALE}, host loop and fused")
@@ -834,11 +920,15 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     phase("5. masked route (segment-sum binary search, no ELL) on EEN")
     ga, host = een
     hk.launches = sk.launches = 0
+    t0 = time.perf_counter()
     out = fused_converge_dense(ga.deg, np.ones(ga.n, bool), ga.src, ga.dst,
                                np.ones(ga.num_arcs, bool), ga.deg, n=ga.n,
                                n_iters=_bs_iters(ga.max_deg), max_rounds=ga.n + 1,
                                device=dev, ell=None)
-    print(f"  rounds={out.rounds} launches: segment_sum {sk.launches}, kcore_hindex {hk.launches}")
+    wall = time.perf_counter() - t0
+    print(f"  n={ga.n} arcs={ga.num_arcs} rounds={out.rounds} in {wall * 1e3:.3f} ms "
+          f"({wall * 1e3 / max(out.rounds, 1):.3f} ms a round, staging included); launches: "
+          f"segment_sum {sk.launches}, kcore_hindex {hk.launches}")
     check(np.array_equal(out.est, host.core) and out.rounds == host.rounds
           and np.array_equal(out.msgs, host.stats.messages_per_round[1:])
           and np.array_equal(out.changed, host.stats.changed_per_round[1:])
@@ -924,6 +1014,8 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
         }
         if name == "kcore_hindex":
             entry.update(device_ms=st["device_ms"], buckets=st["buckets"])
+        if name == "segment_sum":
+            entry.update(device_ms=st["device_ms"], timed=st["timed"])
         if name == "flash_attention":
             ok = st["err"] < FLASH_TOL["bfloat16"] and st["err_f32"] < FLASH_TOL["float32"]
             entry.update(max_abs_err_f32=st["err_f32"], tolerance=FLASH_TOL, timed=st["timed"],
@@ -931,7 +1023,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
         if name == "embedding_bag":
             # the per-case test of phase 9: |err| <= atol + rtol |want| for float32
             ok = st["excess"] <= BAG_TOL and st["err_bf16_ulps"] <= 1.0
-            entry.update(max_excess=st["excess"], max_err_bf16_ulps=st["err_bf16_ulps"],
+            entry.update(device_ms=st["device_ms"], max_excess=st["excess"], max_err_bf16_ulps=st["err_bf16_ulps"],
                          tolerance={"float32": f"|err| <= atol + rtol |want|, rtol = atol = "
                                     f"{BAG_TOL}", "bfloat16": "1 ulp of the output"},
                          timed=st["timed"], check="within tolerance of plain" if ok else "MISMATCH")

@@ -4,7 +4,8 @@
 a graph sorted by source, with ``Graph.offsets`` as ``row_ptr``. On a CUDA
 tensor it launches the kernel (or raises); on a CPU tensor it computes the
 plain version, ``ref.segment_sum_ref``. ``launches`` counts the kernel's
-launches and nothing else.
+launches and nothing else: one a call, which runs the search for the
+blocks' starts, the merge-path pass and the small pass over its carries.
 
 Segment ids in any order go through ``csr_layout``, a host-side stable
 argsort: ``segment_sum(vals[layout.order], layout.row_ptr)``. The reference's
@@ -25,9 +26,19 @@ from repro_torch.kernels.segment_sum.ref import segment_sum_ref
 
 launches = 0
 
+# The kernel's split of the merge path (csrc/segment_sum.cu's kThreads and
+# kItemsPerThread): each block takes ITEMS_PER_BLOCK items of the n row ends
+# and E arcs, each thread ITEMS_PER_THREAD of them. The kernel refuses any
+# other ITEMS_PER_BLOCK. Its scratch holds each block's start on the path
+# and each block's carry.
+THREADS = 256
+ITEMS_PER_THREAD = 16
+ITEMS_PER_BLOCK = THREADS * ITEMS_PER_THREAD
+
 _SYMBOLS = {
-    "segment_sum_i32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_longlong, ctypes.c_void_p],
+    "segment_sum_i32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_void_p],
 }
 
 
@@ -71,13 +82,16 @@ def segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
         return segment_sum_ref(vals, row_ptr)
     if vals.device.type != "cuda":
         raise ValueError(f"segment_sum runs on cuda or cpu, not {vals.device}")
-    n = row_ptr.numel() - 1
+    n, E = row_ptr.numel() - 1, vals.numel()
     out = torch.empty(n, dtype=torch.int32, device=vals.device)
     if n == 0:
         return out
     lib = _build.load("segment_sum", _SYMBOLS)
+    blocks = -(-(n + E) // ITEMS_PER_BLOCK)
+    scratch = torch.empty(4 * blocks + 2, dtype=torch.int64, device=vals.device)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = lib.segment_sum_i32(vals.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, stream)
+    err = lib.segment_sum_i32(vals.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), n, E, ITEMS_PER_BLOCK, stream)
     _build.check(lib, err, "segment_sum")
     launches += 1
     return out

@@ -85,6 +85,42 @@ def test_segment_sum_kernel_matches_plain(cuda, E, n):
     assert torch.equal(got, sk.segment_sum_ref(vals, row_ptr))
 
 
+def _csr(lengths, device):
+    row_ptr = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=row_ptr[1:])
+    return torch.as_tensor(row_ptr, device=device)
+
+
+@pytest.mark.parametrize("case", ["wide row among empty rows", "vals 4 bytes off 16",
+                                  "E = 3 mod 4", "E = 0", "every row one arc",
+                                  "rows of a whole block"])
+def test_segment_sum_kernel_at_the_merge_paths_edges(cuda, case):
+    """The merge path's edge cases (csrc/segment_sum.cu): a row spread over
+    many blocks among 10^6 empty rows, a vals view that starts 4 bytes past a
+    16-byte boundary, E not a multiple of 4, no arcs, a row end on every
+    other item, and blocks that start exactly on row edges."""
+    r = np.random.default_rng(len(case))
+    lengths = {
+        "wide row among empty rows": np.eye(1, 1_000_001, 500_000, dtype=np.int64)[0] * 98_432,
+        "vals 4 bytes off 16": np.concatenate([np.zeros(999, np.int64), r.integers(0, 40, 20_000),
+                                               np.zeros(999, np.int64)]),
+        "E = 3 mod 4": np.full(10_001, 7),
+        "E = 0": np.zeros(1_000_000, np.int64),
+        "every row one arc": np.ones(1_000_003, np.int64),
+        "rows of a whole block": np.full(33, sk.ITEMS_PER_BLOCK - 1),
+    }[case]
+    E = int(lengths.sum())
+    x = torch.as_tensor(r.integers(-2**31, 2**31, E + 1).astype(np.int32), device=cuda)
+    vals = x[1:] if case == "vals 4 bytes off 16" else x[:E]
+    assert vals.is_contiguous() and (case != "vals 4 bytes off 16" or vals.data_ptr() % 16 == 4)
+    row_ptr = _csr(lengths, cuda)
+    before = sk.launches
+    got = sk.segment_sum(vals, row_ptr)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    assert torch.equal(got, sk.segment_sum_ref(vals, row_ptr))
+
+
 @pytest.mark.parametrize("fused", [False, True], ids=["host", "fused"])
 def test_decomposition_on_the_card_runs_both_kernels(cuda, fused):
     g = generators.snap_analogue("EEN", 0.05, seed=0)
@@ -232,6 +268,39 @@ def test_bag_kernel_matches_plain(cuda, V, D, B, L, dtype, lo):
         assert bool(((got.float() - want.float()).abs() <= ulp).all())
     if L == 0:
         assert not got.any()
+
+
+@pytest.mark.parametrize("D,B,L,dtype,view", [
+    (17, 301, 16, torch.float32, None), (18, 301, 16, torch.float32, None),
+    (32, 301, 16, torch.float32, None),                      # 4-, 8- and 16-byte row reads
+    (18, 301, 16, torch.float32, "element"), (32, 99, 16, torch.float32, "row"),
+    (18, 97, 1, torch.float32, None), (18, 97, 15, torch.float32, None),
+    (18, 97, 17, torch.float32, None), (18, 97, 100, torch.float32, None),
+    (18, 1001, 16, torch.bfloat16, None), (17, 77, 16, torch.bfloat16, None),
+    (18, 24 * 41 + 1, 16, torch.float32, None), (8, 128 * 3 + 5, 9, torch.float32, None),
+    (200, 50, 33, torch.float32, None), (200, 50, 33, torch.float32, "element")])  # rounds
+def test_bag_kernel_at_its_vector_widths(cuda, D, B, L, dtype, view):
+    """Every row-read width the kernel picks, a table view whose base lies one
+    element or one row into its buffer, L around the unrolled step and the
+    staged tile, and B not a multiple of the bags a block takes."""
+    V = 1000
+    r = np.random.default_rng(D * 1000 + B + L)
+    flat = torch.as_tensor(r.standard_normal((V + 1) * D + 1, dtype=np.float32),
+                           device=cuda).to(dtype)
+    table = {None: flat[:V * D].view(V, D), "element": flat[1:1 + V * D].view(V, D),
+             "row": flat[:(V + 1) * D].view(V + 1, D)[1:]}[view]
+    idx = torch.as_tensor(r.integers(-1, table.shape[0], (B, L)).astype(np.int32), device=cuda)
+    before = bag.launches
+    got = bag.embedding_bag_sum(table, idx)
+    torch.cuda.synchronize()
+    assert bag.launches == before + 1
+    want = bag.embedding_bag_sum_ref(table, idx)
+    assert got.shape == (B, D) and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=2.0**-126))) - 7)
+        assert bool(((got.float() - want.float()).abs() <= ulp).all())
 
 
 def test_bag_kernel_empty_batch_launches_nothing(cuda):

@@ -278,6 +278,155 @@ def test_segment_sum_wraps_like_int32():
     np.testing.assert_array_equal(got, want)
 
 
+# The CUDA kernel's merge path (csrc/segment_sum.cu), modelled in numpy and
+# held against the reference. The n row ends and E arcs form one path of
+# n + E items (a row's end after its last arc); a block takes ITEMS_PER_BLOCK
+# items, whose start a first kernel finds by a 32-ary search of row_ptr, and
+# stages its row ends and then its arcs, the arcs from the 16-byte chunks that
+# hold them (``head`` is how many 4-byte words vals starts past a
+# 16-byte boundary), and each thread walks ITEMS_PER_THREAD items: an arc adds,
+# a row end stores. A thread's first row gets the partial sums of the threads
+# before it from a segmented scan; the row a block ends in is left as a carry
+# that a last pass adds. Nothing on the main path calls this model.
+
+M32 = 0xFFFFFFFF
+
+
+def _warp_search(row_ptr, n, E, d):
+    """segment_sum.cu's path_search_rows: rows consumed in the first d items."""
+    lo, hi = max(d - E, 0), min(d, n)
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        below = [p < hi and row_ptr[p + 1] + p < d for p in (lo + lane * step for lane in range(32))]
+        nb = sum(below)
+        assert below == [True] * nb + [False] * (32 - nb)        # a prefix of the lanes
+        if nb == 0:
+            hi = lo
+        else:
+            last = lo + (nb - 1) * step
+            hi, lo = min(last + step, hi), last + 1
+    return lo
+
+
+def _block_search(ends, ni, nj, d):
+    lo, hi = max(d - nj, 0), min(d, ni)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (mid + 1, hi) if ends[mid] + mid < d else (lo, mid)
+    return lo
+
+
+def _model_segment_sum(vals, row_ptr, head=0):
+    """The kernel's answer, and per block its (i0, j0, rows, arcs, carry)."""
+    vals = [int(v) & M32 for v in vals]
+    row_ptr = [int(x) for x in row_ptr]
+    n, E = len(row_ptr) - 1, len(vals)
+    T, K, items = sk.THREADS, sk.ITEMS_PER_THREAD, sk.ITEMS_PER_BLOCK
+    out, stores, blocks = [None] * n, [0] * n, []
+    for b in range(-(-(n + E) // items)):
+        d0, d1 = b * items, min((b + 1) * items, n + E)
+        i0, i1 = _warp_search(row_ptr, n, E, d0), _warp_search(row_ptr, n, E, d1)
+        j0, j1 = d0 - i0, d1 - i1
+        ni, nj = i1 - i0, j1 - j0
+        ends = [row_ptr[i0 + 1 + k] - j0 for k in range(ni)]
+        assert all(0 <= e <= nj for e in ends)                     # rows end inside the block
+        # staging: chunks of 4 words from the 16-byte boundary below vals + j0
+        h = (head + j0) % 4
+        stage = {}                                                 # after the ni row ends
+        for q in range(0, h + nj, 4):
+            for e in range(4):
+                if h <= q + e < h + nj:
+                    stage[ni + q + e + (q + e) // 16] = vals[j0 + q + e - h]
+        assert len(stage) == nj and max(stage, default=0) < items + items // 16 + 9
+        tails, flags, firsts, heads = [], [], [], []
+        for t in range(T):
+            dt = min(t * K, ni + nj)
+            dt_end = min(dt + K, ni + nj)
+            i = first = _block_search(ends, ni, nj, dt)
+            j, acc, head_sum, ended = dt - first, 0, 0, False
+            for _ in range(dt, dt_end):
+                if i < ni and ends[i] <= j:
+                    if ended:
+                        out[i0 + i] = acc
+                        stores[i0 + i] += 1
+                    else:
+                        head_sum = acc
+                    ended, acc, i = True, 0, i + 1
+                else:
+                    acc = (acc + stage[ni + h + j + (h + j) // 16]) & M32
+                    j += 1
+            tails.append(acc)
+            flags.append(ended)
+            firsts.append(first)
+            heads.append(head_sum)
+        assert i == ni                                             # the last thread ends at i1
+        S = []
+        for t in range(T):
+            S.append(tails[t] if flags[t] or t == 0 else (tails[t] + S[-1]) & M32)
+        for t in range(T):
+            if flags[t]:
+                out[i0 + firsts[t]] = (heads[t] + (S[t - 1] if t else 0)) & M32
+                stores[i0 + firsts[t]] += 1
+        blocks.append((i0, j0, ni, nj, (i1, S[-1])))
+    assert stores == [1] * n                                       # every row stored once
+    for _, _, _, _, (r, v) in blocks:                              # the carry pass
+        if v and r < n:
+            out[r] = (out[r] + v) & M32
+        assert r < n or v == 0
+    return np.array(out, np.uint32).view(np.int32), blocks
+
+
+CHUNK = sk.ITEMS_PER_BLOCK
+
+
+def _lengths(case, r):
+    if case.startswith("E="):
+        E = {"E=0": 0, "E=1": 1, "E=chunk-1": CHUNK - 1, "E=chunk": CHUNK,
+             "E=chunk+1": CHUNK + 1}[case]
+        n = 300 if E else 5000
+        return np.bincount(r.integers(0, n, E), minlength=n)
+    if case == "one row over many chunks among empty rows":
+        lengths = np.zeros(3000, np.int64)
+        lengths[1500] = 3 * CHUNK + 17
+        return lengths
+    if case == "chunk edges on row edges":            # 16 items a row: 256 rows a block
+        return np.full(3 * CHUNK // 16, sk.ITEMS_PER_THREAD - 1)
+    if case == "a row of a whole chunk":              # its arcs and its end fill a block
+        return np.full(3, CHUNK - 1)
+    if case == "empty rows at both ends":
+        return np.concatenate([np.zeros(5000, np.int64), r.integers(0, 40, 200),
+                               np.zeros(5000, np.int64)])
+    if case == "every row one arc":
+        return np.ones(3 * CHUNK // 2 + 5, np.int64)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("head", [0, 1, 3])
+@pytest.mark.parametrize("case", ["E=0", "E=1", "E=chunk-1", "E=chunk", "E=chunk+1",
+                                  "one row over many chunks among empty rows",
+                                  "chunk edges on row edges", "a row of a whole chunk",
+                                  "empty rows at both ends", "every row one arc"])
+def test_segment_sum_merge_path_model_matches_the_reference(case, head):
+    r = np.random.default_rng(len(case) * 10 + head)
+    lengths = _lengths(case, r)
+    row_ptr = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=row_ptr[1:])
+    E = int(row_ptr[-1])
+    vals = r.integers(-2**31, 2**31, E).astype(np.int32)          # sums wrap
+    got, blocks = _model_segment_sum(vals, row_ptr, head)
+    np.testing.assert_array_equal(got, sk.segment_sum_ref(_t(vals), _t(row_ptr)).numpy())
+    seg = np.repeat(np.arange(len(lengths)), lengths)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg),
+                                          num_segments=len(lengths)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, sk.segment_sum(_t(vals), _t(row_ptr)).numpy())
+    assert len(blocks) == -(-(len(lengths) + E) // CHUNK)
+    if case == "one row over many chunks among empty rows":
+        assert sum(row == 1500 for *_, (row, _) in blocks) >= 3   # carried over 3 blocks
+    if case in ("chunk edges on row edges", "a row of a whole chunk"):
+        assert all(j0 == row_ptr[i0] for i0, j0, *_ in blocks)    # blocks start on row edges
+
+
 # ------------------------------- wrappers --------------------------------- #
 
 @pytest.mark.parametrize("case", ["dtype", "rank", "strided", "est_shape", "n_iters"])
