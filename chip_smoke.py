@@ -5,7 +5,9 @@
 
 The main paths are the paper's from-scratch k-core decomposition
 (``repro_torch.launch.kcore_run``, whose superstep runs the ``kcore_hindex``
-and ``segment_sum`` kernels), LM serving (``launch.serve``, prefill attention
+and ``segment_sum`` kernels, in its jacobi and block_gs modes), the
+streaming engine (``repro_torch.streaming``: churn batches re-converged on
+``segment_sum``), LM serving (``launch.serve``, prefill attention
 on the flash-attention kernel) and DIN (``launch.din_serve``, the context bag
 on the embedding-bag kernel); each kernel is hand-written CUDA under
 ``src/repro_torch/kernels``. Phases, each of which must pass:
@@ -32,14 +34,39 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
 6. Full size: ``snap_analogue("SPR", 1.0)`` through the CLI's entry point,
    fused and then host loop, equal to each other and to BZ, with the kernels'
    launch counters read around these runs only.
-7. Flash attention against its plain version: the serve shape (bf16,
+7. The other static modes on the Table-I set at 0.05: ``--backend ell`` and
+   ``ell_pallas`` (cores equal BZ, rounds and per-round bills equal the
+   segment backend's of phase 4, ``kcore_hindex`` launched) and
+   ``--mode block_gs`` at ``configs/kcore_paper.CONFIG_BEYOND``'s 16 blocks
+   (cores equal BZ, ``segment_sum`` launched), printed against the Jacobi
+   rounds and messages as ``benchmarks/beyond_block_gs.py`` prints them.
+8. Full size, block_gs: SPR at scale 1.0 through ``kcore_run --mode
+   block_gs`` (8 blocks), cores equal BZ, wall, ms a round, rounds and
+   messages against the Jacobi run of phase 6; then ``segment_sum`` held
+   bit-exact against its plain version on every block's staged slices
+   (local row pointer, the widest row's block among them).
+9. The streaming gate: ``benchmarks/streaming_baseline.json``'s nine mean
+   message ratios reproduced exactly at its settings (the loop of
+   ``benchmarks/streaming_maintenance.py`` on the port's dense engine, every
+   batch BZ-checked).
+10. Full size, streaming: one engine built on SPR at scale 1.0 with a fused
+   initial decomposition, cloned through ``state_dict`` into ``dense``,
+   ``compact``, ``fused`` and ``auto`` engines; two churn batches of one
+   stream (0.002, then 0.01 of the edges) applied to each: equal cores and
+   per-round bills across the four, cores equal BZ after each batch,
+   ``segment_sum`` launched in every mode; per mode and batch the phase
+   walls and the staging share, rounds, messages and the ratio against a
+   fused from-scratch run, the seed, the flag reads, launches and peak
+   device memory; after each batch ``segment_sum`` held bit-exact against
+   its plain version on a compact frontier subproblem.
+11. Flash attention against its plain version: the serve shape (bf16,
    B*H 128, S 2048, d 64, causal), a ragged S, GQA and MQA, a window, d 128,
    float32, Sq != Sk, rows masked everywhere, head slices of one fused
    projection read in place, and ``yi-34b``'s heads (56 over 8, d 128, S
    2048), within 2e-2 (bf16) and 2e-5 (float32); at the serve shape and at
    ``yi-34b``'s heads its time beside the plain version's,
    ``scaled_dot_product_attention``'s and the FLOP bound.
-8. LM serving: ``qwen1.5-0.5b`` at full width (24 layers, d_model 1024,
+12. LM serving: ``qwen1.5-0.5b`` at full width (24 layers, d_model 1024,
    vocab 151,936; weights drawn from seed 0) through
    ``repro_torch.launch.serve.generate``: batch 8, prompt 2048, 32 tokens,
    with the flash kernel's launch counter read around that run only (24, one
@@ -54,7 +81,7 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    of each other), and at least two bf16 units in the last place of the
    largest logit.
 
-9. The embedding-bag kernel against its plain version: the reference's sweep
+13. The embedding-bag kernel against its plain version: the reference's sweep
    (indices in [-1, V)), bags that are all padding, L = 1, B = 0, L = 0, a
    bf16 table, DIN's context bag at ``serve_p99`` and ``serve_bulk`` (table
    10,000 x 18, indices (B, 16)), and the 1,000,000 x 18 item table under
@@ -66,7 +93,7 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    place of the output in bf16. At the two DIN shapes its time a call and
    on the device beside the plain version's, ``F.embedding_bag``'s and the
    bytes bound.
-10. DIN at full width (``configs/din.py``: 10^6 x 18 item table, history of
+14. DIN at full width (``configs/din.py``: 10^6 x 18 item table, history of
    100, MLPs 80-40 and 200-80; weights drawn from seed 0 on the card)
    through ``repro_torch.launch.din_serve``'s functions: 3 train steps at
    ``train_batch`` (65,536), serving at ``serve_p99`` (512) and
@@ -83,7 +110,7 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    largest magnitude compared); the top 100 are compared allowing for ties
    (``checks.check_topk``).
 
-11. The ``kernels`` JSON line: each kernel's launches in the main path's
+15. The ``kernels`` JSON line: each kernel's launches in the main path's
    runs, its largest error against its plain version, its time a call and
    on the device (flash attention's under ``timed``), the plain version's,
    the library call's and the bound.
@@ -201,7 +228,7 @@ def max_err(torch, a, b) -> int:
 
 
 def flash_cases(torch, np, dev, st, small: bool = False) -> None:
-    """Phase 7: the flash kernel against its plain version (``attention_ref``).
+    """Phase 11: the flash kernel against its plain version (``attention_ref``).
     ``small`` (the CPU rehearsal) cuts every length and window by 8."""
     import torch.nn.functional as F
 
@@ -314,7 +341,7 @@ def flash_cases(torch, np, dev, st, small: bool = False) -> None:
 
 
 def serve_full_width(torch, dev, small: bool = False) -> int:
-    """Phase 8: serve the full-width model on the card through the serve loop,
+    """Phase 12: serve the full-width model on the card through the serve loop,
     then hold the card's route against the CPU's plain route at batch 1.
     Returns the flash kernel's launches in the measured serve run. ``small``
     (the CPU rehearsal) serves the SMOKE config at a short prompt instead."""
@@ -396,7 +423,7 @@ def serve_full_width(torch, dev, small: bool = False) -> int:
 
 
 def bag_cases(torch, np, dev, st, small: bool = False) -> None:
-    """Phase 9: the embedding-bag kernel against its plain version
+    """Phase 13: the embedding-bag kernel against its plain version
     (``embedding_bag_sum_ref``). ``small`` (the CPU rehearsal) cuts the DIN
     shapes by 64."""
     import torch.nn.functional as F
@@ -530,7 +557,7 @@ def hold(what: str, card, cpu, f64) -> bool:
 
 
 def din_full_width(torch, dev, small: bool = False) -> int:
-    """Phase 10: DIN at full width on the card through the launcher's
+    """Phase 14: DIN at full width on the card through the launcher's
     functions, then the card against the CPU and a float64 evaluation.
     Returns the bag kernel's launches in the measured train, serve and
     retrieval runs. ``small`` (the CPU rehearsal) runs the SMOKE config at
@@ -682,6 +709,266 @@ def din_full_width(torch, dev, small: bool = False) -> int:
     if on_card:
         torch.cuda.empty_cache()
     return launches
+
+
+STATS = ("messages_per_round", "active_per_round", "changed_per_round")
+STREAM_MODES = ("dense", "compact", "fused", "auto")
+STREAM_CHURN = (0.002, 0.01)   # the full-size stream's two batches, as fractions of the edges
+
+
+def same_bills(a, b) -> bool:
+    """Equal rounds and per-round messages, active and changed counts."""
+    import numpy as np
+
+    return a.rounds == b.rounds and all(
+        np.array_equal(getattr(a.stats, k), getattr(b.stats, k)) for k in STATS)
+
+
+def other_static_modes(torch, dev, table1, launches) -> None:
+    """Phase 7: the ELL backends and block_gs on the Table-I set, held
+    against phase 4's segment-backend runs and BZ."""
+    import numpy as np
+
+    from repro_torch.configs.kcore_paper import CONFIG_BEYOND
+    from repro_torch.core.kcore import KCoreConfig, kcore_decompose
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+
+    on_card = dev.type == "cuda"
+    print(f"  {'graph':6} {'jacobi_msgs':>12} {'gs_msgs':>10} {'msg_reduction':>14} "
+          f"{'jacobi_rounds':>14} {'gs_rounds':>10}   (block_gs at {CONFIG_BEYOND.n_blocks} blocks)")
+    for abbrev, (ga, bz, seg) in table1.items():
+        for backend in ("ell", "ell_pallas"):
+            hk.launches = sk.launches = 0
+            res = kcore_decompose(ga, KCoreConfig(backend=backend), device=dev)
+            launches["kcore_hindex"] += hk.launches
+            launches["segment_sum"] += sk.launches
+            check(np.array_equal(res.core, bz) and res.converged and same_bills(res, seg),
+                  f"{abbrev} --backend {backend}: cores equal BZ, rounds and per-round bills equal "
+                  f"the segment backend's ({res.rounds} rounds, {res.stats.total_messages} "
+                  f"messages; launches kcore_hindex {hk.launches}, segment_sum {sk.launches})")
+            if on_card:
+                check(hk.launches > 0, f"{abbrev} --backend {backend} launched kcore_hindex")
+        hk.launches = sk.launches = 0
+        gs = kcore_decompose(ga, CONFIG_BEYOND, device=dev)
+        launches["kcore_hindex"] += hk.launches
+        launches["segment_sum"] += sk.launches
+        jac, gsm = seg.stats.total_messages, gs.stats.total_messages
+        print(f"  {abbrev:6} {jac:>12} {gsm:>10} {round(1 - gsm / max(jac, 1), 3):>14} "
+              f"{seg.rounds:>14} {gs.rounds:>10}   block_gs "
+              f"{gs.phase_s['converge'] * 1e3 / max(gs.rounds, 1):.3f} ms a round; launches "
+              f"segment_sum {sk.launches}, kcore_hindex {hk.launches}")
+        check(np.array_equal(gs.core, bz) and gs.converged,
+              f"{abbrev} --mode block_gs ({CONFIG_BEYOND.n_blocks} blocks): cores equal BZ")
+        if on_card:
+            check(sk.launches > 0 and hk.launches == 0,
+                  f"{abbrev} block_gs ran on the segment_sum kernel alone")
+
+
+def segsum_held(torch, cases, what: str) -> int:
+    """Hold the segment_sum kernel bit-exact against its plain version on
+    ``cases``, a list of ``(label, vals, row_ptr)``. These launches only
+    compare and are taken off the count again. Returns the largest error."""
+    from repro_torch.kernels.segment_sum import ops as sk
+
+    counted, worst = sk.launches, 0
+    for label, vals, row_ptr in cases:
+        err = max_err(torch, sk.segment_sum(vals, row_ptr), sk.segment_sum_ref(vals, row_ptr))
+        worst = max(worst, err)
+        check(err == 0, f"segment_sum {what}, {label}: E={vals.numel()} "
+                        f"n={row_ptr.numel() - 1} bit-equal")
+    sk.launches = counted
+    return worst
+
+
+def first_probe_hits(torch, est_u, est_dst, src):
+    """The hit vector of ``_hindex_by_bsearch``'s first probe."""
+    mid_src = ((est_u + 1) // 2).index_select(0, src)
+    return ((est_dst >= mid_src) & (mid_src > 0)).to(torch.int32)
+
+
+def block_gs_full(torch, dev, g, core_bz, jacobi, spr_scale, launches) -> int:
+    """Phase 8: SPR through ``kcore_run --mode block_gs``, against the
+    Jacobi host loop of phase 6; then the segment sums at the shapes of its
+    blocks, kernel against plain. Returns the largest segment_sum error."""
+    import numpy as np
+
+    from repro_torch.core import dispatch
+    from repro_torch.core.kcore import KCoreConfig
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.launch import kcore_run
+
+    on_card = dev.type == "cuda"
+    args = kcore_run.parse_args(["--graph", "SPR", "--scale", str(spr_scale), "--device",
+                                 dev.type, "--json", "--mode", "block_gs"])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    hk.launches = sk.launches = 0
+    report, res = kcore_run.decompose_report(g, args, core_ref=core_bz)
+    launches["kcore_hindex"] += hk.launches
+    launches["segment_sum"] += sk.launches
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    jac_ms = jacobi.phase_s["converge"] * 1e3 / max(jacobi.rounds, 1)
+    gs_ms = res.phase_s["converge"] * 1e3 / max(res.rounds, 1)
+    print(f"  block_gs, {res.rounds} rounds, {res.stats.total_messages} messages, wall_s "
+          f"{report['wall_s']}, phase_s {report['phase_s']}, {gs_ms:.3f} ms a round, peak_bytes "
+          f"{peak}; launches segment_sum {sk.launches}, kcore_hindex {hk.launches}")
+    print(f"  jacobi host loop (phase 6): {jacobi.rounds} rounds, {jacobi.stats.total_messages} "
+          f"messages, {jac_ms:.3f} ms a round; block_gs saves "
+          f"{1 - res.stats.total_messages / max(jacobi.stats.total_messages, 1):.3%} of the "
+          f"messages and {jacobi.rounds - res.rounds} rounds")
+    check(report["correct_vs_BZ"] and report["converged"], "SPR block_gs: cores equal BZ")
+    if on_card:
+        check(sk.launches > 0 and hk.launches == 0, "SPR block_gs ran on the segment_sum kernel")
+    # every block's staged slices (local row pointer shifted by the block's
+    # first arc) with the hits of round 1's first probe from the degree seed
+    st = dispatch.stage_blocks(g.n, g.src, g.dst, KCoreConfig().n_blocks, dev)
+    deg = torch.as_tensor(g.deg, dtype=torch.int32, device=dev)
+    est = torch.cat([deg, deg.new_zeros(st.n_pad - g.n)])
+    wide = int(np.argmax(g.deg)) // st.V
+    cases = [(f"block {b}{' (the widest row)' if b == wide else ''}",
+              first_probe_hits(torch, est[v0:v0 + st.V], est.index_select(0, b_dst), b_src),
+              b_ptr) for b, (v0, b_src, b_dst, b_ptr) in enumerate(st.blocks)]
+    err = segsum_held(torch, cases, "at the block_gs slices")
+    del st, cases
+    return err
+
+
+def streaming_gate(torch, dev, launches) -> None:
+    """Phase 9: ``benchmarks/streaming_baseline.json``'s mean ratios at its
+    settings (``benchmarks/streaming_maintenance.py``'s loop)."""
+    import numpy as np
+
+    from repro_torch.core.bz import bz_core_numbers
+    from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.graph import generators
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.streaming import StreamingKCoreEngine, random_churn_batch
+
+    base = json.loads((ROOT / "benchmarks" / "streaming_baseline.json").read_text())
+    cfg = base["settings"]
+    print(f"  settings {cfg}; the dense engine only: the sharded twin the benchmark runs beside "
+          f"it waits for ROADMAP.md Queue A item 10")
+    for abbrev in cfg["graphs"]:
+        for churn in cfg["churn_rates"]:
+            g = generators.snap_analogue(
+                abbrev, scale=cfg["target_n"] / generators.SNAP_BY_ABBREV[abbrev].n, seed=0)
+            t0 = time.perf_counter()
+            eng = StreamingKCoreEngine(g, device=dev)
+            rng = np.random.default_rng(1)
+            ratios, ok = [], True
+            for _ in range(cfg["batches"]):
+                g_before = eng.graph
+                b = max(2, int(churn * g_before.m))
+                batch = random_churn_batch(g_before, b // 2, b - b // 2, rng)
+                hk.launches = sk.launches = 0
+                res = eng.apply_batch(batch)
+                launches["kcore_hindex"] += hk.launches
+                launches["segment_sum"] += sk.launches
+                scratch = kcore_decompose(eng.graph, device=dev)
+                ok = ok and bool((res.core == bz_core_numbers(eng.graph)).all())
+                ratios.append(round(res.total_messages / max(scratch.stats.total_messages, 1), 4))
+            key = f"{abbrev}/{churn}"
+            mean = round(float(np.mean(ratios)), 4)
+            check(ok and mean == base["mean_ratio"][key],
+                  f"streaming gate {key}: n={g.n} m={g.m}, every batch BZ-exact, mean ratio "
+                  f"{mean} == {base['mean_ratio'][key]} ({time.perf_counter() - t0:.2f} s)")
+
+
+def streaming_full(torch, dev, g, core_bz, launches) -> int:
+    """Phase 10: one SPR stream through the four frontier modes; after each
+    batch the segment sums of a compact subproblem, kernel against plain.
+    Returns the largest segment_sum error."""
+    import numpy as np
+
+    from repro_torch.core import dispatch
+    from repro_torch.core.bz import bz_core_numbers
+    from repro_torch.core.kcore import KCoreConfig, _receivers, kcore_decompose
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine, random_churn_batch
+    from repro_torch.streaming.engine import compact_subproblem
+
+    on_card = dev.type == "cuda"
+    err = 0
+    t0 = time.perf_counter()
+    hk.launches = sk.launches = 0
+    base = StreamingKCoreEngine(g, kcore_config=KCoreConfig(fused=True), device=dev)
+    launches["kcore_hindex"] += hk.launches
+    launches["segment_sum"] += sk.launches
+    state = base.state_dict()
+    engines = {mode: StreamingKCoreEngine.from_state_dict(state, StreamingConfig(frontier=mode),
+                                                         device=dev)
+               for mode in STREAM_MODES}
+    print(f"  engine on SPR (n={g.n}, m={g.m}, CSR capacity {base.csr.capacity}) with a fused "
+          f"initial decomposition, {base.init_result.rounds} rounds, and 4 clones through "
+          f"state_dict in {time.perf_counter() - t0:.1f} s")
+    check(np.array_equal(base.core, core_bz), "streaming engine: initial cores equal BZ")
+    del base, state
+    rng = np.random.default_rng(1)
+    g_cur = g
+    for i, churn in enumerate(STREAM_CHURN):
+        b = max(2, int(churn * g_cur.m))
+        batch = random_churn_batch(g_cur, b // 2, b - b // 2, rng)
+        results, seen = {}, {}
+        for mode, eng in engines.items():
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            hk.launches = sk.launches = 0
+            results[mode] = eng.apply_batch(batch)
+            launches["kcore_hindex"] += hk.launches
+            launches["segment_sum"] += sk.launches
+            seen[mode] = (sk.launches, hk.launches,
+                          torch.cuda.max_memory_allocated() if on_card else 0)
+        g_cur = engines["dense"].graph
+        t0 = time.perf_counter()
+        bz = bz_core_numbers(g_cur)
+        t_bz = time.perf_counter() - t0
+        scratch = kcore_decompose(g_cur, fused=True, device=dev)
+        print(f"  batch {i}: churn {churn}, {b} edges asked ({batch.insert.shape[0]} inserts, "
+              f"{batch.delete.shape[0]} deletes), n={g_cur.n} m={g_cur.m}; BZ {t_bz:.1f} s; "
+              f"from scratch (fused) {scratch.rounds} rounds, {scratch.stats.total_messages} "
+              f"messages, {scratch.phase_s['device-converge']:.4f} s on the device")
+        dense = results["dense"]
+        for mode, res in results.items():
+            busy = res.seed_s + res.converge_s
+            sk_n, hk_n, peak = seen[mode]
+            print(f"    {mode:8} ran {res.mode:8} patch_s {res.patch_s:.4f} seed_s {res.seed_s:.4f} "
+                  f"converge_s {res.converge_s:.4f} reconstruct_s {res.reconstruct_s:.4f} "
+                  f"stage_s {res.stage_s:.4f} ({res.stage_s / max(busy, 1e-12):.1%} of seed + "
+                  f"converge); rounds {res.rounds}, messages {res.total_messages} "
+                  f"({res.total_messages / max(scratch.stats.total_messages, 1):.4f} of scratch); "
+                  f"region {res.region_size}, seed {res.seed_strategy}, est. passes "
+                  f"{res.seed_est_passes}, seed_changed {res.seed_changed}; flag reads "
+                  f"{res.flag_reads}; launches segment_sum {sk_n}, kcore_hindex {hk_n}; "
+                  f"peak_bytes {peak}")
+            check(np.array_equal(res.core, dense.core) and same_bills(res, dense)
+                  and res.converged, f"streaming batch {i}: {mode} equals dense in cores, "
+                                     f"rounds and per-round bills")
+            if on_card:
+                check(sk_n > 0, f"streaming batch {i}: {mode} launched segment_sum")
+        check(np.array_equal(dense.core, bz), f"streaming batch {i}: cores equal BZ")
+        # compact subproblems over the live arcs at the new cores: a small
+        # frontier (the batch's touched vertices) and a wide one (and their
+        # receivers)
+        src, dst, row_ptr = dispatch.stage_arcs(g_cur.src, g_cur.dst, g_cur.n, dev)
+        core = torch.as_tensor(results["compact"].core, device=dev)
+        act = torch.zeros(g_cur.n, dtype=torch.bool, device=dev)
+        touched = results["compact"].delta.touched
+        act[torch.as_tensor(touched[touched < g_cur.n], device=dev)] = True
+        for frontier in ("touched", "touched and receivers"):
+            if frontier != "touched":
+                act |= _receivers(act, dst, row_ptr)
+            _, sub_src, sub_ptr, est_u, est_dst = compact_subproblem(core, act, src, dst)
+            err = max(err, segsum_held(
+                torch, [(f"batch {i}, {frontier}, {est_u.numel()} active rows",
+                         first_probe_hits(torch, est_u, est_dst, sub_src), sub_ptr)],
+                "at a compact subproblem"))
+        del src, dst, row_ptr, core, act, sub_src, sub_ptr, est_u, est_dst
+    del engines, results, g_cur
+    return err
 
 
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
@@ -894,25 +1181,23 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     # ------------------------------------------------------------------ #
     phase(f"4. BZ-checked Table-I suite at scale {TABLE_I_SCALE}, host loop and fused")
     baseline = json.loads((ROOT / "benchmarks" / "static_baseline.json").read_text())["mean_ratio"]
-    een = None
+    een, table1 = None, {}
     for abbrev in TABLE_I:
         ga = generators.snap_analogue(abbrev, TABLE_I_SCALE, seed=0)
         bz = bz_core_numbers(ga)
         host = kcore_decompose(ga, device=dev)
         fused = kcore_decompose(ga, fused=True, device=dev)
         ratio = round(host.stats.total_messages / max(work_bound(ga, host.core), 1), 4)
-        same = host.rounds == fused.rounds and all(
-            np.array_equal(getattr(host.stats, k), getattr(fused.stats, k))
-            for k in ("messages_per_round", "active_per_round", "changed_per_round"))
         print(f"  {abbrev}: n={ga.n} m={ga.m} rounds={host.rounds} "
               f"messages={host.stats.total_messages} ratio={ratio} (baseline {baseline[abbrev]}); "
               f"host {host.phase_s['converge'] * 1e3 / host.rounds:.3f} ms/round, fused "
               f"{fused.phase_s['device-converge'] * 1e3 / fused.rounds:.3f} ms/round")
         check(np.array_equal(host.core, bz) and np.array_equal(fused.core, bz),
               f"{abbrev} cores equal BZ (host loop and fused)")
-        check(same and host.converged and fused.converged,
+        check(same_bills(host, fused) and host.converged and fused.converged,
               f"{abbrev} host loop and fused agree on rounds and per-round bills")
         check(ratio == baseline[abbrev], f"{abbrev} messages/work bound {ratio} == {baseline[abbrev]}")
+        table1[abbrev] = (ga, bz, host)
         if abbrev == "EEN":
             een = (ga, host)
 
@@ -963,10 +1248,8 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
         if device == "cuda":
             check(hk.launches > 0 and sk.launches > 0, f"SPR {label} launched both kernels")
     fused, host = runs["fused"], runs["host loop"]
-    check(np.array_equal(fused.core, host.core) and fused.rounds == host.rounds and all(
-        np.array_equal(getattr(fused.stats, k), getattr(host.stats, k))
-        for k in ("messages_per_round", "active_per_round", "changed_per_round")),
-        "SPR fused and host loop agree on cores, rounds and per-round bills")
+    check(np.array_equal(fused.core, host.core) and same_bills(fused, host),
+          "SPR fused and host loop agree on cores, rounds and per-round bills")
 
     # where one superstep's time goes, at the degree seed
     plan = dispatch.resolve_plan(dev)
@@ -980,28 +1263,50 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"{gather_ms:.3f} ms, kcore_hindex {stats['kcore_hindex']['ms']:.3f} ms, "
           f"segment_sum {stats['segment_sum']['ms']:.3f} ms")
 
-    del body, live, everyone, ext, tiles, deg_t, runs, fused, host, g, ell
+    jacobi = runs["host loop"]
+    del body, live, everyone, ext, tiles, deg_t, runs, fused, host, ell
     # ------------------------------------------------------------------ #
-    phase("7. flash_attention against its plain version")
+    phase(f"7. the other static modes on the Table-I set at scale {TABLE_I_SCALE}")
+    other_static_modes(torch, dev, table1, launches)
+
+    # ------------------------------------------------------------------ #
+    phase(f"8. full size: SPR at scale {spr_scale} through kcore_run --mode block_gs")
+    err = block_gs_full(torch, dev, g, core_bz, jacobi, spr_scale, launches)
+    stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
+
+    # ------------------------------------------------------------------ #
+    phase("9. the streaming gate (benchmarks/streaming_baseline.json)")
+    streaming_gate(torch, dev, launches)
+
+    # ------------------------------------------------------------------ #
+    phase(f"10. full size, streaming: SPR at scale {spr_scale}, churn "
+          f"{' then '.join(map(str, STREAM_CHURN))} in each frontier mode")
+    err = streaming_full(torch, dev, g, core_bz, launches)
+    stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
+    del g, jacobi, table1
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # ------------------------------------------------------------------ #
+    phase("11. flash_attention against its plain version")
     flash_cases(torch, np, dev, stats["flash_attention"], small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase(f"8. serve {SERVE['arch']} at full width: batch {SERVE['batch']}, prompt "
+    phase(f"12. serve {SERVE['arch']} at full width: batch {SERVE['batch']}, prompt "
           f"{SERVE['prompt']}, {SERVE['gen']} tokens")
     launches["flash_attention"] = serve_full_width(torch, dev, small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase("9. embedding_bag against its plain version")
+    phase("13. embedding_bag against its plain version")
     bag_cases(torch, np, dev, stats["embedding_bag"], small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase(f"10. DIN at full width: train at batch {DIN['train_batch']}, serve at batch "
+    phase(f"14. DIN at full width: train at batch {DIN['train_batch']}, serve at batch "
           f"{' and '.join(map(str, DIN['serve']))}, retrieval over {DIN['n_candidates']} "
           f"candidates")
     launches["embedding_bag"] = din_full_width(torch, dev, small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase("11. kernels")
+    phase("15. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]

@@ -16,9 +16,12 @@ contract of ``core.kcore.masked_round_segment`` / ``core.kcore.fused_convergence
 With the static degree-bucketed ``EllGraph`` the per-vertex h-index runs
 through ``kcore_hindex`` per bucket; with ``ell=None`` it is the binary
 search with segment-sum hit counts (the route the streaming engine needs).
-Either way the receivers are a segment sum. Dispatch is an execution-
-placement choice, never an accounting one: cores and bills are bit-equal
-across routes and devices.
+Either way the receivers are a segment sum. ``block_gs_round_program``
+stages the block-Gauss-Seidel sweep the same way (``stage_blocks``: each
+vertex block's arcs and row pointer once), the blocks swept in order within
+a round. Dispatch
+is an execution-placement choice, never an accounting one: cores and bills
+are bit-equal across routes and devices.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.kcore import _finish_round, _fused_loop, masked_round_segment
+from repro_torch.core.kcore import (_finish_round, _fused_loop, _hindex_by_bsearch, _receivers,
+                                    masked_round_segment)
+from repro_torch.graph.partition import shard_layout
 from repro_torch.graph.structs import EllGraph
 from repro_torch.kernels.kcore_hindex.ops import hindex_rows
 from repro_torch.platform import resolve_device
@@ -53,18 +58,18 @@ def resolve_plan(device: str | torch.device | None = None) -> DispatchPlan:
 # Staging — once per program, never per round
 # ---------------------------------------------------------------------- #
 
-def _stage_arcs(src, dst, n: int, device: torch.device):
+def stage_arcs(src, dst, n: int, device: torch.device):
     """Arc arrays on ``device``: src/dst as int32 gather indices (they go
     through ``index_select``), and the CSR row pointer of the src-sorted
-    arcs as int64 (built on the host)."""
-    src = np.ascontiguousarray(src, np.int32)
-    dst = np.ascontiguousarray(dst, np.int32)
-    if src.size and (src[1:] < src[:-1]).any():
+    arcs as int64, found on the device by a binary search of ``src``.
+    ``src``/``dst`` may be numpy arrays or tensors already on ``device``
+    (then nothing is copied)."""
+    src, dst = (torch.as_tensor(a if torch.is_tensor(a) else np.ascontiguousarray(a),
+                                dtype=torch.int32, device=device) for a in (src, dst))
+    if src.numel() > 1 and bool((src[1:] < src[:-1]).any()):
         raise ValueError("arcs must be sorted by source (CSR order)")
-    row_ptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(src, minlength=n), out=row_ptr[1:])
-    return (torch.as_tensor(src, device=device), torch.as_tensor(dst, device=device),
-            torch.as_tensor(row_ptr, device=device))
+    rows = torch.arange(n + 1, dtype=torch.int32, device=device)
+    return src, dst, torch.searchsorted(src, rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,16 +115,21 @@ def _hindex_ell(est, tiles: list[_Tile], n_iters: int):
 # ---------------------------------------------------------------------- #
 
 def masked_round_program(n: int, n_iters: int, plan: DispatchPlan, src, dst,
-                         ell: EllGraph | None = None):
+                         ell: EllGraph | None = None, row_ptr=None):
     """Dispatched superstep ``round_body(est, arc_mask, active) -> (new_est,
     changed, recv)`` — ``core.kcore.masked_round_segment`` with the arcs
-    staged on ``plan.device``.
+    staged on ``plan.device`` (``arc_mask`` None: every arc is live). With
+    ``row_ptr`` given, ``(src, dst, row_ptr)`` is already the triple of
+    ``stage_arcs`` and nothing is staged again.
 
     With ``ell`` (static fully-live adjacency only — the from-scratch
     decomposition) the h-index runs through ``kcore_hindex`` per degree
     bucket; otherwise it is the binary search with segment-sum hit counts.
     """
-    src_t, dst_t, row_ptr = _stage_arcs(src, dst, n, plan.device)
+    if row_ptr is None:
+        src_t, dst_t, row_ptr = stage_arcs(src, dst, n, plan.device)
+    else:
+        src_t, dst_t = src, dst
     if ell is None:
         def round_body(est, arc_mask, active):
             return masked_round_segment(est, src_t, dst_t, row_ptr, arc_mask, active, n_iters)
@@ -137,13 +147,76 @@ def masked_round_program(n: int, n_iters: int, plan: DispatchPlan, src, dst,
 
 def fused_convergence_program(n: int, n_iters: int, max_rounds: int,
                               plan: DispatchPlan, src, dst,
-                              ell: EllGraph | None = None):
+                              ell: EllGraph | None = None, row_ptr=None):
     """Dispatched fused convergence ``prog(est, arc_mask, active, deg) ->
     (est', rounds, stopped, final_active, msgs_buf, changed_buf, recv_buf)``
-    — the contract of ``core.kcore.fused_convergence``."""
-    round_body = masked_round_program(n, n_iters, plan, src, dst, ell)
+    — the contract of ``core.kcore.fused_convergence``; the arcs as in
+    ``masked_round_program``."""
+    round_body = masked_round_program(n, n_iters, plan, src, dst, ell, row_ptr)
 
     def prog(est, arc_mask, active, deg):
         return _fused_loop(lambda e, a: round_body(e, arc_mask, a), est, active, deg, max_rounds)
 
     return prog
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedBlocks:
+    """The block-Gauss-Seidel layout on the device: the staged arcs'
+    ``dst`` and ``row_ptr`` (for the receivers), and per block ``(v0, src,
+    dst, row_ptr)`` — its first vertex, its arcs' local sources and global
+    destinations and its ``(V + 1,)`` local row pointer."""
+
+    V: int
+    n_pad: int
+    dst: torch.Tensor
+    row_ptr: torch.Tensor
+    blocks: list
+
+
+def stage_blocks(n: int, src, dst, n_blocks: int, device: torch.device) -> StagedBlocks:
+    """Stage the arcs once and cut them into the vertex blocks of
+    ``partition.shard_layout`` (the reference's geometry: ``n`` padded up to
+    a multiple of the block count; padding vertices have no arcs)."""
+    src_t, dst_t, row_ptr = stage_arcs(src, dst, n, device)
+    V, _, bounds = shard_layout(n, np.asarray(src), n_blocks)
+    n_pad = V * n_blocks
+    E = src_t.numel()
+    row_ptr_pad = torch.cat([row_ptr, row_ptr.new_full((n_pad - n,), E)])
+    blocks = []
+    for b in range(n_blocks):
+        lo, hi = int(bounds[b]), int(bounds[b + 1])
+        blocks.append((b * V, src_t[lo:hi] - b * V, dst_t[lo:hi],
+                       row_ptr_pad[b * V:(b + 1) * V + 1] - lo))
+    return StagedBlocks(V, n_pad, dst_t, row_ptr, blocks)
+
+
+def block_gs_round_program(n: int, src, dst, n_blocks: int, n_iters: int, plan: DispatchPlan):
+    """Dispatched block-Gauss-Seidel round ``round_body(est) -> (new_est,
+    changed, recv)`` over a static fully-live adjacency (src-sorted arcs).
+
+    The port of the reference's ``_make_round_block_gs``: the vertices fall
+    into ``n_blocks`` contiguous blocks of ``V`` (``stage_blocks``; padding
+    vertices stay at estimate 0). Within a round the blocks are swept in
+    order, and each block's h-index (the binary search with segment-sum hit
+    counts over the block's own arcs) reads the estimates the blocks before
+    it wrote in the same round.
+    ``changed`` marks the vertices whose estimate dropped this round and
+    ``recv`` those with an arc to one of them. Every block's arcs and row
+    pointer are slices of arrays staged on the device once, here.
+    """
+    st = stage_blocks(n, src, dst, n_blocks, plan.device)
+    V, n_pad = st.V, st.n_pad
+
+    def round_body(est):
+        new = torch.cat([est, est.new_zeros(n_pad - n)])
+        changed = torch.zeros(n_pad, dtype=torch.bool, device=est.device)
+        for v0, b_src, b_dst, b_ptr in st.blocks:
+            est_u = new[v0:v0 + V]
+            h = _hindex_by_bsearch(est_u, new.index_select(0, b_dst), b_src, b_ptr, n_iters)
+            changed[v0:v0 + V] = h < est_u
+            new[v0:v0 + V] = h
+        changed = changed[:n]
+        return new[:n], changed, _receivers(changed, st.dst, st.row_ptr)
+
+    return round_body

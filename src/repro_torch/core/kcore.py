@@ -10,13 +10,24 @@ where H is the h-index operator, and "sends" its new value to all neighbors
 when it decreased. The fixpoint equals the exact core numbers (locality
 theorem, §II.B of the paper).
 
-This slice ports mode ``jacobi`` (paper-faithful synchronous rounds) with
-backend ``segment``, driven two ways: a host loop that reads each round's
-changed vector back (``kcore_decompose``), and a fused loop whose
-per-round bills stay on the device (``fused_convergence`` and
-``core/runtime.py``). Both iterate the superstep that ``core/dispatch.py``
-builds: on CUDA it runs the hand-written ``kcore_hindex`` and
-``segment_sum`` kernels, on the CPU their plain PyTorch versions. Cores and
+Execution modes, as in the reference:
+
+  * ``jacobi``   — paper-faithful synchronous rounds. Every backend
+                   (``segment``, ``ell``, ``ell_pallas``) runs the same
+                   superstep here: the h-index of every degree-bucket row
+                   through ``kcore_hindex`` (the reference's ELL layout) and
+                   the receivers through ``segment_sum``; the backend only
+                   names the run. Driven by a host loop that reads each
+                   round's changed vector back (``kcore_decompose``), or by
+                   the fused loop whose per-round bills stay on the device
+                   (``fused_convergence`` and ``core/runtime.py``).
+  * ``block_gs`` — beyond-paper block-Gauss-Seidel: ``n_blocks`` vertex
+                   blocks swept in order within a round, each reading the
+                   estimates the blocks before it wrote (the binary search
+                   with ``segment_sum`` hit counts per block). Host loop only.
+
+``core/dispatch.py`` builds the supersteps: on CUDA they run the
+hand-written kernels, on the CPU their plain PyTorch versions. Cores and
 per-round ``MessageStats`` are bit-equal to the reference's in every mode.
 """
 
@@ -37,8 +48,8 @@ from repro_torch.obs import flight as _flight
 from repro_torch.obs import trace as _trace
 from repro_torch.platform import resolve_device
 
-# where ROADMAP.md queues what this slice does not port
-ROADMAP_OTHER_MODES = "ROADMAP.md Queue A item 4 (other static backends and modes)"
+MODES = ("jacobi", "block_gs")
+BACKENDS = ("segment", "ell", "ell_pallas")
 
 
 # ---------------------------------------------------------------------- #
@@ -47,13 +58,14 @@ ROADMAP_OTHER_MODES = "ROADMAP.md Queue A item 4 (other static backends and mode
 
 @dataclasses.dataclass(frozen=True)
 class KCoreConfig:
-    mode: str = "jacobi"            # "jacobi" (block_gs: ROADMAP Queue A item 4)
-    backend: str = "segment"        # "segment" (ell, ell_pallas: item 4)
+    mode: str = "jacobi"            # "jacobi" | "block_gs"
+    backend: str = "segment"        # "segment" | "ell" | "ell_pallas"
+    n_blocks: int = 8               # block_gs sweep granularity
     max_rounds: int | None = None   # None → n + 1 (the worst-case depth)
     widths: tuple[int, ...] = (8, 32, 128, 512, 2048)   # ELL bucket widths
     # run the round loop with its per-round bills kept on the device
     # (core/runtime.py) instead of reading each round's changed vector back;
-    # accounting is bit-equal either way
+    # jacobi only, and accounting is bit-equal either way
     fused: bool = False
 
 
@@ -104,10 +116,13 @@ def _hindex_by_bsearch(est, est_dst_masked, src, row_ptr, n_iters):
     return lo
 
 
-def _receivers(changed, dst, row_ptr, arc_mask):
+def _receivers(changed, dst, row_ptr, arc_mask=None):
     """Who receives a message next round: u such that a live neighbor
-    changed — a segment sum of ``changed[dst]`` over u's arcs."""
-    hit = changed.index_select(0, dst) & arc_mask
+    changed — a segment sum of ``changed[dst]`` over u's arcs
+    (``arc_mask`` None: every arc is live)."""
+    hit = changed.index_select(0, dst)
+    if arc_mask is not None:
+        hit &= arc_mask
     return segment_sum(hit.to(torch.int32), row_ptr) > 0
 
 
@@ -125,8 +140,11 @@ def masked_round_segment(est, src, dst, row_ptr, arc_mask, active, n_iters):
     keeps their estimate. With ``active`` all-True this is the paper's plain
     synchronous superstep. The masked form is exact for the monotone
     locality operator (an inactive vertex's inputs are unchanged).
+    ``arc_mask`` None: every arc is live.
     """
-    est_dst = torch.where(arc_mask, est.index_select(0, dst), 0)
+    est_dst = est.index_select(0, dst)
+    if arc_mask is not None:
+        est_dst = torch.where(arc_mask, est_dst, 0)
     h = _hindex_by_bsearch(est, est_dst, src, row_ptr, n_iters)
     return _finish_round(est, h, active, dst, row_ptr, arc_mask)
 
@@ -213,15 +231,16 @@ def kcore_decompose(g: Graph, config: KCoreConfig = KCoreConfig(), *,
     kernels. Per-round message/active accounting follows the paper exactly
     (see core/messages.py). ``fused=True`` (keyword override of
     ``config.fused``) keeps the per-round bills on the device and
-    reconstructs them afterwards, bit-equal to the host loop.
+    reconstructs them afterwards, bit-equal to the host loop; it is
+    jacobi-only (``ValueError`` otherwise), and the backend is only a name
+    there, as in the reference.
     """
     dev = resolve_device(device)
-    if config.mode != "jacobi":
-        raise NotImplementedError(f"mode={config.mode!r} is not ported yet: {ROADMAP_OTHER_MODES}")
-    if config.backend != "segment":
-        raise NotImplementedError(
-            f"backend={config.backend!r} is not ported yet: {ROADMAP_OTHER_MODES}")
     use_fused = config.fused if fused is None else fused
+    if use_fused and config.mode != "jacobi":
+        raise ValueError(f"fused=True requires mode='jacobi' (got {config.mode!r})")
+    if config.mode not in MODES or (config.mode == "jacobi" and config.backend not in BACKENDS):
+        raise ValueError(f"unsupported combo mode={config.mode} backend={config.backend}")
     with _trace.span("kcore.decompose", n=g.n, m=g.m, mode=config.mode,
                      backend=config.backend, fused=bool(use_fused),
                      device=str(dev)) as _sp:
@@ -266,22 +285,20 @@ def _decompose_body(g: Graph, config: KCoreConfig, use_fused: bool,
             n=n)
         rec.record_round(active[0], msgs[0], changed_counts[0], est=g.deg)
 
-    # static fully-live adjacency + degree seed: the ELL h-index route is
-    # exact here (degree-0 vertices sit in no bucket and keep estimate 0)
     t_stage = time.perf_counter()
-    ell = build_ell(g, widths=config.widths)
-
     if use_fused:
         from repro_torch.core.runtime import fused_converge_dense
 
+        # static fully-live adjacency + degree seed: the ELL h-index route is
+        # exact here (degree-0 vertices sit in no bucket and keep estimate 0)
+        ell = build_ell(g, widths=config.widths)
         phase_s["stage"] = time.perf_counter() - t_stage
         # from-scratch seeding: est = degrees, frontier = every vertex.
         # frontier1: the loop activates everyone but the accounting bills
         # only (deg>0) receivers in round 1 — pass the accounting value so
         # flight records match the host loop bit-for-bit
         outcome = fused_converge_dense(
-            g.deg, np.ones(n, bool), g.src, g.dst,
-            np.ones(g.num_arcs, bool), g.deg,
+            g.deg, np.ones(n, bool), g.src, g.dst, None, g.deg,
             n=n, n_iters=n_iters, max_rounds=max_rounds,
             device=dev, ell=ell, frontier1=active[1])
         rounds, converged = outcome.rounds, outcome.converged
@@ -294,17 +311,25 @@ def _decompose_body(g: Graph, config: KCoreConfig, use_fused: bool,
         phase_s["host-reconstruct"] = outcome.reconstruct_s
 
     else:
-        step = _dispatch.masked_round_program(n, n_iters, plan, g.src, g.dst, ell=ell)
+        if config.mode == "block_gs":
+            step = _dispatch.block_gs_round_program(n, g.src, g.dst, max(1, config.n_blocks),
+                                                    n_iters, plan)
+        else:
+            prog = _dispatch.masked_round_program(n, n_iters, plan, g.src, g.dst,
+                                                  ell=build_ell(g, widths=config.widths))
+            everyone = torch.ones(n, dtype=torch.bool, device=dev)
+
+            def step(est):
+                return prog(est, None, everyone)
+
         est = torch.from_numpy(g.deg).to(dev)
-        amask = torch.ones(g.num_arcs, dtype=torch.bool, device=dev)
-        everyone = torch.ones(n, dtype=torch.bool, device=dev)
         phase_s["stage"] = time.perf_counter() - t_stage
         rounds, converged = 0, False
         t_conv = time.perf_counter()
         while rounds < max_rounds:
             t_r = time.perf_counter() if rec.active else 0.0
             with _trace.span("kcore.round", round=rounds) as rsp:
-                new_est, changed, recv = step(est, amask, everyone)
+                new_est, changed, recv = step(est)
                 rounds += 1
                 ch_np = changed.cpu().numpy()
                 if not ch_np.any():

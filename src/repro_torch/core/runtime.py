@@ -107,8 +107,12 @@ def _finish(span, raw, t_dev, builds0, bsecs0, est_of, dispatch, frontier1=None,
 
 
 def fused_converge_dense(seed, active, src, dst, arc_mask, deg, *, n, n_iters, max_rounds,
-                         device=None, ell=None, frontier1=None):
-    """Single-device fused convergence over host (numpy) arc arrays.
+                         device=None, ell=None, frontier1=None, row_ptr=None):
+    """Single-device fused convergence over arc arrays, from an arbitrary
+    seed and frontier. ``arc_mask`` None: every arc is live. With
+    ``row_ptr`` given, ``(src, dst, row_ptr)`` is already the triple of
+    ``dispatch.stage_arcs`` on the device (the streaming engine stages its
+    live arcs once a batch) and is used as it is.
 
     ``src`` must be sorted (CSR order). With the static degree-bucketed
     ``ell`` layout the h-index runs through the ``kcore_hindex`` route
@@ -132,12 +136,14 @@ def fused_converge_dense(seed, active, src, dst, arc_mask, deg, *, n, n_iters, m
     with trace.span("fused-converge", n=n, max_rounds=max_rounds, dispatch=plan.kind) as span:
         with trace.span("stage"):
             t0 = time.perf_counter()
-            prog = _dispatch.fused_convergence_program(n, n_iters, max_rounds, plan, src, dst, ell=ell)
+            prog = _dispatch.fused_convergence_program(n, n_iters, max_rounds, plan, src, dst,
+                                                       ell=ell, row_ptr=row_ptr)
             inputs = (
-                torch.as_tensor(np.ascontiguousarray(seed, np.int32), device=dev),
-                torch.as_tensor(np.ascontiguousarray(arc_mask, bool), device=dev),
-                torch.as_tensor(np.ascontiguousarray(active, bool), device=dev),
-                torch.as_tensor(np.ascontiguousarray(deg, np.int32), device=dev),
+                torch.as_tensor(seed, dtype=torch.int32, device=dev),
+                None if arc_mask is None else torch.as_tensor(arc_mask, dtype=torch.bool,
+                                                              device=dev),
+                torch.as_tensor(active, dtype=torch.bool, device=dev),
+                torch.as_tensor(deg, dtype=torch.int32, device=dev),
             )
             stage_s = time.perf_counter() - t0
         with trace.span("device-converge"):

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --scale 0.2
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph SPR --scale 1.0 --fused --json
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph chain --n 2000 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --mode block_gs
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --backend ell --device cpu
 
 Prints the paper's measurement set: total messages, messages/active nodes
 per round, rounds to convergence, work bound, heartbeat-model overhead and
@@ -13,7 +15,9 @@ diffed field by field, and adds ``device``, the card's name.
 Runs on the CUDA card unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); with no card and no ``--device cpu`` it fails.
 ``--fused`` keeps the per-round bills on the device (core/runtime.py),
-bit-equal to the host loop.
+bit-equal to the host loop (jacobi only). ``--mode block_gs`` sweeps 8
+vertex blocks in order within a round; ``--backend ell|ell_pallas`` names
+the ELL route, which every jacobi backend of the port runs.
 """
 
 from __future__ import annotations
@@ -21,9 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import time
-
-_OTHER_MODES = "ROADMAP.md Queue A item 4 (other static backends and modes)"
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
@@ -66,8 +67,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     # what this slice does not port, and the ROADMAP.md item that will
     refused = [
-        (args.mode != "jacobi", f"--mode {args.mode}", _OTHER_MODES),
-        (args.backend != "segment", f"--backend {args.backend}", _OTHER_MODES),
         (args.mesh, "--mesh", "ROADMAP.md Queue A item 10 (sharded and multi-process paths)"),
         (args.out_of_core, "--out-of-core", "ROADMAP.md Queue A item 8 (out-of-core)"),
         (args.metrics, "--metrics", "ROADMAP.md Queue A item 7 (serving, the CLIs, obs/metrics)"),

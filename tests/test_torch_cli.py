@@ -37,7 +37,10 @@ def _report(out):
     ("--graph", "FC", "--scale", "0.05", "--fused"),
     ("--graph", "EEN", "--scale", "0.02"),
     ("--graph", "chain", "--n", "300", "--fused"),
-], ids=["FC-fused", "EEN-host", "chain-fused"])
+    ("--graph", "FC", "--scale", "0.05", "--mode", "block_gs"),
+    ("--graph", "EEN", "--scale", "0.02", "--backend", "ell_pallas"),
+    ("--graph", "ba", "--n", "400", "--backend", "ell", "--fused"),
+], ids=["FC-fused", "EEN-host", "chain-fused", "FC-block_gs", "EEN-ell_pallas", "ba-ell-fused"])
 def test_cli_report_equals_the_jax_cli(argv):
     port = _report(_run("repro_torch.launch.kcore_run", *argv, "--device", "cpu", "--json"))
     ref = _report(_run("repro.launch.kcore_run", *argv, "--json"))
@@ -58,8 +61,6 @@ def test_cli_trace_and_flight_outputs(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (("--mode", "block_gs"), "item 4"),
-    (("--backend", "ell"), "item 4"),
     (("--mesh", "4"), "item 10"),
     (("--out-of-core",), "item 8"),
     (("--metrics",), "item 7"),
@@ -68,6 +69,12 @@ def test_cli_refuses_what_is_not_ported(argv, item):
     out = _run("repro_torch.launch.kcore_run", "--graph", "FC", "--device", "cpu", *argv)
     assert out.returncode == 2
     assert f"ROADMAP.md Queue A {item}" in out.stderr
+
+
+def test_cli_refuses_fused_block_gs_as_the_reference_does():
+    out = _run("repro_torch.launch.kcore_run", "--graph", "chain", "--n", "30", "--device", "cpu",
+               "--mode", "block_gs", "--fused")
+    assert out.returncode != 0 and "requires mode='jacobi'" in out.stderr
 
 
 def test_cli_without_a_card_fails_unless_cpu_is_asked():

@@ -134,6 +134,48 @@ def test_decomposition_on_the_card_runs_both_kernels(cuda, fused):
     np.testing.assert_array_equal(res.stats.messages_per_round, cpu.stats.messages_per_round)
 
 
+@pytest.mark.parametrize("mode,backend,n_blocks,kernel", [
+    ("jacobi", "ell", 8, "kcore_hindex"), ("jacobi", "ell_pallas", 8, "kcore_hindex"),
+    ("block_gs", "segment", 8, "segment_sum"), ("block_gs", "segment", 16, "segment_sum")])
+def test_other_static_modes_on_the_card_equal_the_cpu(cuda, mode, backend, n_blocks, kernel):
+    from repro_torch.core.kcore import KCoreConfig
+
+    g = generators.snap_analogue("FC", 0.05, seed=0)
+    config = KCoreConfig(mode=mode, backend=backend, n_blocks=n_blocks)
+    hk.launches = sk.launches = 0
+    res = kcore_decompose(g, config)
+    assert res.dispatch == "kernel"
+    assert {"kcore_hindex": hk.launches, "segment_sum": sk.launches}[kernel] > 0
+    assert sk.launches > 0 and (hk.launches == 0) == (mode == "block_gs")
+    np.testing.assert_array_equal(res.core, bz_core_numbers(g))
+    cpu = kcore_decompose(g, config, device="cpu")
+    assert res.rounds == cpu.rounds
+    for k in ("messages_per_round", "active_per_round", "changed_per_round"):
+        np.testing.assert_array_equal(getattr(res.stats, k), getattr(cpu.stats, k))
+
+
+@pytest.mark.parametrize("mode", ["dense", "compact", "fused", "auto"])
+def test_streaming_modes_on_the_card_equal_the_cpu(cuda, mode):
+    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine, random_churn_batch
+
+    g = generators.snap_analogue("EEN", 0.05, seed=0)
+    card = StreamingKCoreEngine(g, StreamingConfig(frontier=mode))
+    cpu = StreamingKCoreEngine(g, StreamingConfig(frontier=mode), device="cpu")
+    rng = np.random.default_rng(1)
+    for churn in (12, 200, 40):
+        batch = random_churn_batch(cpu.graph, churn, churn, rng)
+        sk.launches = 0
+        got = card.apply_batch(batch)
+        assert sk.launches > 0
+        want = cpu.apply_batch(batch)
+        np.testing.assert_array_equal(got.core, want.core)
+        np.testing.assert_array_equal(got.core, bz_core_numbers(cpu.graph))
+        assert (got.rounds, got.mode, got.region_size, got.seed_strategy) == \
+            (want.rounds, want.mode, want.region_size, want.seed_strategy)
+        for k in ("messages_per_round", "active_per_round", "changed_per_round"):
+            np.testing.assert_array_equal(getattr(got.stats, k), getattr(want.stats, k))
+
+
 # tolerances of tests/test_kernels.py:160 (reasons in tests/test_torch_flash_attention.py)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 

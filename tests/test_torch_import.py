@@ -102,10 +102,11 @@ def test_dispatch_plan_follows_the_device():
 
 
 def test_not_ported_combinations_name_their_roadmap_item():
-    from repro_torch.core.kcore import KCoreConfig, kcore_decompose
     from repro_torch.graph import generators
+    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine
 
     g = generators.chain(10)
-    for config in (KCoreConfig(mode="block_gs"), KCoreConfig(backend="ell_pallas")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 4"):
-            kcore_decompose(g, config, device="cpu")
+    for config, mesh in ((StreamingConfig(frontier="sharded"), None),
+                         (StreamingConfig(frontier="fused"), object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
+            StreamingKCoreEngine(g, config, mesh=mesh, device="cpu")

@@ -206,3 +206,108 @@ def test_graph_ell_and_bz_equal_reference(name):
 def test_from_reference_rejects_other_objects():
     with pytest.raises(TypeError):
         from_reference(object())
+
+
+# ------------------------- the other static modes ------------------------- #
+
+# the (mode, backend) pairs of tests/test_kcore_engine.py:35-38, and block_gs
+# at the beyond-paper config's 16 blocks (configs/kcore_paper.py)
+STATIC_MODES = [("jacobi", "segment", 8), ("jacobi", "ell", 8), ("jacobi", "ell_pallas", 8),
+                ("block_gs", "segment", 8), ("block_gs", "segment", 16)]
+
+
+@pytest.mark.parametrize("mode,backend,n_blocks", STATIC_MODES)
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_static_modes_bit_equal_to_reference(name, mode, backend, n_blocks):
+    ref = jax_kcore.kcore_decompose(
+        GRAPHS[name](jax_gen), jax_kcore.KCoreConfig(mode=mode, backend=backend, n_blocks=n_blocks))
+    port = kcore.kcore_decompose(
+        GRAPHS[name](gen), kcore.KCoreConfig(mode=mode, backend=backend, n_blocks=n_blocks),
+        device="cpu")
+    _assert_same(port, ref)
+    assert port.converged and port.dispatch == "torch"
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 7, 64])
+def test_block_gs_on_awkward_block_counts(n_blocks):
+    """n not a multiple of the blocks (padding vertices), one block (= jacobi
+    order), and more blocks than a block's vertices fill (empty blocks)."""
+    ref = jax_kcore.kcore_decompose(jax_gen.barabasi_albert(97, 3, seed=0),
+                                    jax_kcore.KCoreConfig(mode="block_gs", n_blocks=n_blocks))
+    port = kcore.kcore_decompose(gen.barabasi_albert(97, 3, seed=0),
+                                 kcore.KCoreConfig(mode="block_gs", n_blocks=n_blocks),
+                                 device="cpu")
+    _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("mode", ["ell", "block_gs"])
+@pytest.mark.parametrize("cap", [1, 4])
+def test_other_modes_max_rounds_cap(mode, cap):
+    cfg = dict(backend="ell") if mode == "ell" else dict(mode="block_gs")
+    ref = jax_kcore.kcore_decompose(jax_gen.chain(60), jax_kcore.KCoreConfig(max_rounds=cap, **cfg))
+    port = kcore.kcore_decompose(gen.chain(60), kcore.KCoreConfig(max_rounds=cap, **cfg),
+                                 device="cpu")
+    assert not port.converged
+    _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("mode,backend", [("jacobi", "ell"), ("jacobi", "ell_pallas"),
+                                          ("block_gs", "segment")])
+@pytest.mark.parametrize("name", ["fig1", "ba", "EEN"])
+def test_other_modes_flight_series_equal_reference(recorders, name, mode, backend):
+    jax_kcore.kcore_decompose(GRAPHS[name](jax_gen), jax_kcore.KCoreConfig(mode=mode, backend=backend))
+    kcore.kcore_decompose(GRAPHS[name](gen), kcore.KCoreConfig(mode=mode, backend=backend),
+                          device="cpu")
+    port, ref = flight.records(), jax_flight.records()
+    assert len(port) > 1
+    assert _series(port) == _series(ref)
+    assert {r.mode for r in port} == {f"{mode}/{backend}"}
+
+
+def test_fused_block_gs_raises_as_the_reference_does():
+    with pytest.raises(ValueError, match="requires mode='jacobi'"):
+        jax_kcore.kcore_decompose(jax_gen.chain(10), jax_kcore.KCoreConfig(mode="block_gs"),
+                                  fused=True)
+    with pytest.raises(ValueError, match="requires mode='jacobi'"):
+        kcore.kcore_decompose(gen.chain(10), kcore.KCoreConfig(mode="block_gs", fused=True),
+                              device="cpu")
+    with pytest.raises(ValueError, match="unsupported combo"):
+        kcore.kcore_decompose(gen.chain(10), kcore.KCoreConfig(backend="dense"), device="cpu")
+
+
+def test_paper_configs_equal_the_reference():
+    from repro.configs import kcore_paper as jax_paper
+    from repro_torch.configs import kcore_paper
+
+    for name in ("CONFIG", "CONFIG_BEYOND"):
+        port, ref = getattr(kcore_paper, name), getattr(jax_paper, name)
+        assert {f: getattr(port, f) for f in ("mode", "backend", "n_blocks", "max_rounds",
+                                              "widths", "fused")} == \
+            {f: getattr(ref, f) for f in ("mode", "backend", "n_blocks", "max_rounds",
+                                          "widths", "fused")}
+    assert kcore_paper.GRAPHS == jax_paper.GRAPHS
+
+
+@pytest.mark.parametrize("name", ["ba", "FC", "star"])
+def test_block_gs_round_program_sweeps_blocks_in_order(name):
+    """One round of the staged block-Gauss-Seidel program equals the
+    reference's ``_make_round_block_gs`` round from an arbitrary state."""
+    import jax.numpy as jnp
+
+    from repro.graph.partition import shard_graph as jax_shard_graph
+
+    g = GRAPHS[name](jax_gen)
+    r = np.random.default_rng(3)
+    est = r.integers(0, g.max_deg + 2, g.n).astype(np.int32)
+    n_iters = kcore._bs_iters(g.max_deg + 2)
+    sg = jax_shard_graph(g, 5)
+    est_pad = np.zeros(sg.n_pad, np.int32)
+    est_pad[:g.n] = est
+    want_est, want_ch = jax_kcore._make_round_block_gs(sg, n_iters)(jnp.asarray(est_pad))
+    body = dispatch.block_gs_round_program(g.n, g.src, g.dst, 5, n_iters,
+                                           dispatch.resolve_plan("cpu"))
+    got_est, got_ch, recv = body(torch.from_numpy(est))
+    np.testing.assert_array_equal(got_est.numpy(), np.asarray(want_est)[:g.n])
+    np.testing.assert_array_equal(got_ch.numpy(), np.asarray(want_ch)[:g.n])
+    np.testing.assert_array_equal(recv.numpy(),
+                                  jax_kcore._receivers_np(g, np.asarray(want_ch)[:g.n]))
