@@ -7,7 +7,9 @@ The main paths are the paper's from-scratch k-core decomposition
 (``repro_torch.launch.kcore_run``, whose superstep runs the ``kcore_hindex``
 and ``segment_sum`` kernels, in its jacobi and block_gs modes), the
 streaming engine (``repro_torch.streaming``: churn batches re-converged on
-``segment_sum``), LM serving (``launch.serve``, prefill attention
+``segment_sum``), the temporal path (``repro_torch.temporal``: a window
+sliding over a timestamped edge stream, each advance one streaming batch,
+checkpointed through ``repro_torch.checkpoint``), LM serving (``launch.serve``, prefill attention
 on the flash-attention kernel) and DIN (``launch.din_serve``, the context bag
 on the embedding-bag kernel); each kernel is hand-written CUDA under
 ``src/repro_torch/kernels``. Phases, each of which must pass:
@@ -59,14 +61,32 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    fused from-scratch run, the seed, the flag reads, launches and peak
    device memory; after each batch ``segment_sum`` held bit-exact against
    its plain version on a compact frontier subproblem.
-11. Flash attention against its plain version: the serve shape (bf16,
+11. The temporal gate: ``benchmarks/temporal_baseline.json``'s four mean
+   message ratios (EEN, FC, ba, contact) reproduced exactly at its settings
+   (the loop of ``benchmarks/temporal_replay.py::run_records`` on the port's
+   ``replay``, fused frontier, every boundary BZ-checked, each window graph's
+   scratch bill from ``kcore_decompose`` on the card), with each trace's
+   mean ms a round, ``patch_ms`` and ``converge_ms``.
+12. Full size, temporal: SPR's temporal log (``temporal_snap_analogue("SPR",
+   1.0, remove_frac=0.15)``, made from phase 6's graph), a count window of
+   3,000,000 events sliding 300,000 at a time in ``fused`` mode: filled in
+   one advance of 10 strides, then 3 sliding advances, each boundary checked
+   by ``check_step`` (edge set, engine graph, cores against BZ); per step the
+   batch, rounds and messages against a fused from-scratch run, the phase
+   walls, the ``window.diff`` wall and the step wall, CSR health, launches
+   and peak device memory. After the first slide the window is checkpointed,
+   restored into a fresh engine and both take the next advance: equal cores,
+   bills and every ``BatchResult`` accounting field. ``segment_sum`` is held
+   bit-exact against its plain version on the fill's staged live arcs
+   (2,097,152 rows, most empty).
+13. Flash attention against its plain version: the serve shape (bf16,
    B*H 128, S 2048, d 64, causal), a ragged S, GQA and MQA, a window, d 128,
    float32, Sq != Sk, rows masked everywhere, head slices of one fused
    projection read in place, and ``yi-34b``'s heads (56 over 8, d 128, S
    2048), within 2e-2 (bf16) and 2e-5 (float32); at the serve shape and at
    ``yi-34b``'s heads its time beside the plain version's,
    ``scaled_dot_product_attention``'s and the FLOP bound.
-12. LM serving: ``qwen1.5-0.5b`` at full width (24 layers, d_model 1024,
+14. LM serving: ``qwen1.5-0.5b`` at full width (24 layers, d_model 1024,
    vocab 151,936; weights drawn from seed 0) through
    ``repro_torch.launch.serve.generate``: batch 8, prompt 2048, 32 tokens,
    with the flash kernel's launch counter read around that run only (24, one
@@ -81,7 +101,7 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    of each other), and at least two bf16 units in the last place of the
    largest logit.
 
-13. The embedding-bag kernel against its plain version: the reference's sweep
+15. The embedding-bag kernel against its plain version: the reference's sweep
    (indices in [-1, V)), bags that are all padding, L = 1, B = 0, L = 0, a
    bf16 table, DIN's context bag at ``serve_p99`` and ``serve_bulk`` (table
    10,000 x 18, indices (B, 16)), and the 1,000,000 x 18 item table under
@@ -93,7 +113,7 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    place of the output in bf16. At the two DIN shapes its time a call and
    on the device beside the plain version's, ``F.embedding_bag``'s and the
    bytes bound.
-14. DIN at full width (``configs/din.py``: 10^6 x 18 item table, history of
+16. DIN at full width (``configs/din.py``: 10^6 x 18 item table, history of
    100, MLPs 80-40 and 200-80; weights drawn from seed 0 on the card)
    through ``repro_torch.launch.din_serve``'s functions: 3 train steps at
    ``train_batch`` (65,536), serving at ``serve_p99`` (512) and
@@ -110,7 +130,7 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    largest magnitude compared); the top 100 are compared allowing for ties
    (``checks.check_topk``).
 
-15. The ``kernels`` JSON line: each kernel's launches in the main path's
+17. The ``kernels`` JSON line: each kernel's launches in the main path's
    runs, its largest error against its plain version, its time a call and
    on the device (flash attention's under ``timed``), the plain version's,
    the library call's and the bound.
@@ -228,7 +248,7 @@ def max_err(torch, a, b) -> int:
 
 
 def flash_cases(torch, np, dev, st, small: bool = False) -> None:
-    """Phase 11: the flash kernel against its plain version (``attention_ref``).
+    """Phase 13: the flash kernel against its plain version (``attention_ref``).
     ``small`` (the CPU rehearsal) cuts every length and window by 8."""
     import torch.nn.functional as F
 
@@ -341,7 +361,7 @@ def flash_cases(torch, np, dev, st, small: bool = False) -> None:
 
 
 def serve_full_width(torch, dev, small: bool = False) -> int:
-    """Phase 12: serve the full-width model on the card through the serve loop,
+    """Phase 14: serve the full-width model on the card through the serve loop,
     then hold the card's route against the CPU's plain route at batch 1.
     Returns the flash kernel's launches in the measured serve run. ``small``
     (the CPU rehearsal) serves the SMOKE config at a short prompt instead."""
@@ -423,7 +443,7 @@ def serve_full_width(torch, dev, small: bool = False) -> int:
 
 
 def bag_cases(torch, np, dev, st, small: bool = False) -> None:
-    """Phase 13: the embedding-bag kernel against its plain version
+    """Phase 15: the embedding-bag kernel against its plain version
     (``embedding_bag_sum_ref``). ``small`` (the CPU rehearsal) cuts the DIN
     shapes by 64."""
     import torch.nn.functional as F
@@ -557,7 +577,7 @@ def hold(what: str, card, cpu, f64) -> bool:
 
 
 def din_full_width(torch, dev, small: bool = False) -> int:
-    """Phase 14: DIN at full width on the card through the launcher's
+    """Phase 16: DIN at full width on the card through the launcher's
     functions, then the card against the CPU and a float64 evaluation.
     Returns the bag kernel's launches in the measured train, serve and
     retrieval runs. ``small`` (the CPU rehearsal) runs the SMOKE config at
@@ -971,6 +991,214 @@ def streaming_full(torch, dev, g, core_bz, launches) -> int:
     return err
 
 
+# the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 3,000,000
+# events (about 10 % of the stream) sliding 300,000 at a time (1 % of SPR's edges), filled in one
+# advance of 10 strides, then 3 sliding advances; a checkpoint after the first of them
+TEMPORAL = {"remove_frac": 0.15, "window": 3_000_000, "stride": 300_000, "slides": 3,
+            "frontier": "fused"}
+# BatchResult fields that are walls (or builds) rather than accounting
+WALLS = ("patch_s", "seed_s", "converge_s", "reconstruct_s", "recompiles", "compile_s", "stage_s")
+
+
+def same_batch(a, b) -> bool:
+    """Equal cores, per-round bills, delta and every accounting field."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name in WALLS or f.name == "stats":
+            continue
+        if f.name == "delta":
+            if not all(np.array_equal(getattr(x, k), getattr(y, k))
+                       for k in ("inserted", "deleted", "touched")) or x.compacted != y.compacted:
+                return False
+        elif isinstance(x, np.ndarray):
+            if not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return same_bills(a, b)
+
+
+def gate_trace(name: str, cfg: dict):
+    """``benchmarks/temporal_replay.py::traces`` at the baseline's settings
+    ``cfg``, on the port's generators: (log, window, stride, by)."""
+    from repro_torch.graph import generators
+    from repro_torch.temporal import (contact_bursts, temporal_barabasi_albert,
+                                      temporal_snap_analogue)
+
+    n, steps, strides = cfg["target_n"], cfg["steps"], cfg["window_strides"]
+    if name in ("EEN", "FC"):
+        log = temporal_snap_analogue(name, scale=n / generators.SNAP_BY_ABBREV[name].n, seed=0,
+                                     remove_frac=cfg["snap_remove_frac"])
+    elif name == "ba":
+        log = temporal_barabasi_albert(n, 3, seed=0, remove_frac=cfg["ba_remove_frac"])
+    else:
+        log = contact_bursts(max(n // 10, 20), n_bursts=4 * steps, seed=0)
+        stride = max((log.t_max - log.t_min) / (steps + 2), 1e-9)
+        return log, strides * stride, stride, "time"
+    stride = max(len(log) // (steps + 2), 1)
+    return log, strides * stride, stride, "count"
+
+
+def temporal_gate(torch, dev, launches) -> None:
+    """Phase 11: ``benchmarks/temporal_baseline.json``'s four mean ratios at
+    its settings (``benchmarks/temporal_replay.py::run_records`` on the
+    port: every boundary BZ-checked, each window graph's scratch bill from
+    ``kcore_decompose`` on the card)."""
+    import numpy as np
+
+    from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.streaming import StreamingConfig
+    from repro_torch.temporal import replay
+
+    base = json.loads((ROOT / "benchmarks" / "temporal_baseline.json").read_text())
+    cfg = base["settings"]
+    print(f"  settings {cfg}")
+    for name in cfg["traces"]:
+        log, window, stride, by = gate_trace(name, cfg)
+        t0 = time.perf_counter()
+        hk.launches = sk.launches = 0
+        traj = replay(log, window, stride, by=by, oracle_every=1,
+                      config=StreamingConfig(frontier=cfg["frontier"]), max_steps=cfg["steps"],
+                      device=dev)
+        launches["kcore_hindex"] += hk.launches
+        launches["segment_sum"] += sk.launches
+        seg = sk.launches
+        ratios = []
+        for rec in traj.records:
+            scratch = kcore_decompose(log.graph_between(rec.lo, rec.hi), device=dev)
+            ratios.append(round(rec.messages / max(scratch.stats.total_messages, 1), 4))
+        mean = round(float(np.mean(ratios)), 4)
+        per_round = np.mean([r.step_ms / max(r.rounds, 1) for r in traj.records])
+        check(all(r.oracle_ok for r in traj.records) and len(ratios) == cfg["steps"]
+              and mean == base["mean_ratio"][name],
+              f"temporal gate {name}: n={log.n} events={len(log)} {by} window, every boundary "
+              f"BZ-exact, mean ratio {mean} == {base['mean_ratio'][name]}; mean ms_per_round "
+              f"{per_round:.3f}, patch_ms {traj.series('patch_ms').mean():.3f}, converge_ms "
+              f"{traj.series('converge_ms').mean():.3f}; segment_sum launches {seg} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if dev.type == "cuda":
+            check(seg > 0, f"temporal gate {name} launched segment_sum")
+
+
+def temporal_full(torch, dev, g, spr_scale, launches) -> int:
+    """Phase 12: a window sliding over SPR's temporal log, BZ-checked at each
+    boundary, checkpointed and restarted warm after the first slide; then
+    the segment sum over a window graph's staged arcs, kernel against
+    plain. Returns the largest segment_sum error."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core import dispatch
+    from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.obs import trace
+    from repro_torch.streaming import StreamingConfig
+    from repro_torch.temporal import WindowedKCoreEngine, check_step, events
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    log = events._snap_events(g, seed=0, remove_frac=TEMPORAL["remove_frac"])
+    window = max(int(TEMPORAL["window"] * spr_scale), 10)
+    stride = max(window // 10, 1)
+    config = StreamingConfig(frontier=TEMPORAL["frontier"])
+    print(f"  SPR temporal log: n={log.n}, {len(log)} events ({len(log) - log.num_adds} removes), "
+          f"made from the phase-6 graph in {time.perf_counter() - t0:.1f} s; count window "
+          f"{window} events, stride {stride}, {config.frontier}")
+    weng = WindowedKCoreEngine(log, window, stride, config=config, device=dev)
+    print(f"  window engine: min_slack {weng.config.min_slack}, CSR capacity "
+          f"{weng.engine.csr.capacity}")
+
+    def step(eng, k, label):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        trace.reset()
+        trace.enable()
+        hk.launches = sk.launches = 0
+        t0 = time.perf_counter()
+        ws = eng.advance(k)
+        wall = time.perf_counter() - t0
+        trace.disable()
+        launches["kcore_hindex"] += hk.launches
+        launches["segment_sum"] += sk.launches
+        diff_s = sum(e["dur"] for e in trace.events() if e["name"] == "window.diff") / 1e6
+        trace.reset()
+        res, seg, hin = ws.result, sk.launches, hk.launches
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        check(check_step(eng, ws), f"{label}: the edge set equals edges_between, the engine "
+                                   f"graph the window graph, the cores BZ "
+                                   f"({time.perf_counter() - t0:.1f} s)")
+        wg = eng.window_graph()
+        scratch = kcore_decompose(wg, fused=True, device=dev)
+        print(f"    {label}: [{ws.lo}, {ws.hi}) inserted {res.delta.inserted.shape[0]} deleted "
+              f"{res.delta.deleted.shape[0]} m {ws.m}; rounds {res.rounds}, messages "
+              f"{res.total_messages} ({res.total_messages / max(scratch.stats.total_messages, 1):.4f}"
+              f" of a fused scratch run: {scratch.rounds} rounds, {scratch.stats.total_messages} "
+              f"messages); patch_s {res.patch_s:.4f} seed_s {res.seed_s:.4f} (stage_s "
+              f"{res.stage_s:.4f}) converge_s {res.converge_s:.4f} flag_reads {res.flag_reads}; "
+              f"window.diff {diff_s:.4f} s, step wall {wall:.4f} s; compactions "
+              f"{res.csr_compactions}, dead {res.csr_dead_frac:.4f}, occupancy "
+              f"{res.csr_occupancy:.4f}; seed {res.seed_strategy}, region {res.region_size}; "
+              f"segment_sum launches {seg}, kcore_hindex {hin}; peak_bytes {peak}")
+        check(res.converged, f"{label}: converged")
+        if on_card:
+            check(seg > 0, f"{label} launched segment_sum")
+        return ws, wg
+
+    fill, wg = step(weng, window // stride, f"fill ({window // stride} strides)")
+    # the segment sum over the window graph's staged live arcs, at the hits
+    # of a from-scratch round 1's first probe (degree seed)
+    csr = weng.engine.csr
+    src, dst, row_ptr = dispatch.stage_arcs(csr.src[csr.live], csr.dst[csr.live], log.n, dev)
+    deg = torch.as_tensor(wg.deg, dtype=torch.int32, device=dev)
+    err = segsum_held(torch, [(f"the fill's window graph, {int((wg.deg > 0).sum())} rows not "
+                               f"empty", first_probe_hits(torch, deg, deg.index_select(0, dst),
+                                                          src), row_ptr)],
+                      "at a window graph's staged arcs")
+    del src, dst, row_ptr, deg, wg, fill
+    step(weng, 1, "slide 1")
+
+    tmp = tempfile.mkdtemp(prefix="kcore_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, weng.steps_taken, weng.state_dict())
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        warm = WindowedKCoreEngine(log, window, stride, config=config, device=dev)
+        state, ckpt_step = restore_checkpoint(tmp, warm.state_dict())
+        warm.load_state_dict(state)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  checkpoint at step {ckpt_step}: {nbytes} bytes, saved in {save_s:.2f} s, restored "
+          f"into a fresh window engine in {restore_s:.2f} s")
+    check(ckpt_step == weng.steps_taken and np.array_equal(warm.core, weng.core)
+          and warm.bounds == weng.bounds, "the restored window holds the checkpointed cores "
+                                          "and bounds")
+    a, _ = step(weng, 1, "slide 2")
+    b, _ = step(warm, 1, "slide 2, warm restart")
+    check(same_batch(a.result, b.result) and (a.lo, a.hi, a.m) == (b.lo, b.hi, b.m),
+          "warm restart: the next advance equals the uninterrupted window's in cores, per-round "
+          "bills and every BatchResult accounting field")
+    del warm, state, a, b
+    step(weng, 1, "slide 3")
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    del weng, log
+    return err
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -1283,30 +1511,40 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"{' then '.join(map(str, STREAM_CHURN))} in each frontier mode")
     err = streaming_full(torch, dev, g, core_bz, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
+
+    # ------------------------------------------------------------------ #
+    phase("11. the temporal gate (benchmarks/temporal_baseline.json)")
+    temporal_gate(torch, dev, launches)
+
+    # ------------------------------------------------------------------ #
+    phase(f"12. full size, temporal: a window over SPR's log at scale {spr_scale}, checkpointed "
+          f"and restarted warm")
+    err = temporal_full(torch, dev, g, spr_scale, launches)
+    stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
     del g, jacobi, table1
     if device == "cuda":
         torch.cuda.empty_cache()
     # ------------------------------------------------------------------ #
-    phase("11. flash_attention against its plain version")
+    phase("13. flash_attention against its plain version")
     flash_cases(torch, np, dev, stats["flash_attention"], small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase(f"12. serve {SERVE['arch']} at full width: batch {SERVE['batch']}, prompt "
+    phase(f"14. serve {SERVE['arch']} at full width: batch {SERVE['batch']}, prompt "
           f"{SERVE['prompt']}, {SERVE['gen']} tokens")
     launches["flash_attention"] = serve_full_width(torch, dev, small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase("13. embedding_bag against its plain version")
+    phase("15. embedding_bag against its plain version")
     bag_cases(torch, np, dev, stats["embedding_bag"], small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase(f"14. DIN at full width: train at batch {DIN['train_batch']}, serve at batch "
+    phase(f"16. DIN at full width: train at batch {DIN['train_batch']}, serve at batch "
           f"{' and '.join(map(str, DIN['serve']))}, retrieval over {DIN['n_candidates']} "
           f"candidates")
     launches["embedding_bag"] = din_full_width(torch, dev, small=device != "cuda")
 
     # ------------------------------------------------------------------ #
-    phase("15. kernels")
+    phase("17. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]
@@ -1326,7 +1564,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
             entry.update(max_abs_err_f32=st["err_f32"], tolerance=FLASH_TOL, timed=st["timed"],
                          check="within tolerance of plain" if ok else "MISMATCH")
         if name == "embedding_bag":
-            # the per-case test of phase 9: |err| <= atol + rtol |want| for float32
+            # the per-case test of phase 15: |err| <= atol + rtol |want| for float32
             ok = st["excess"] <= BAG_TOL and st["err_bf16_ulps"] <= 1.0
             entry.update(device_ms=st["device_ms"], max_excess=st["excess"], max_err_bf16_ulps=st["err_bf16_ulps"],
                          tolerance={"float32": f"|err| <= atol + rtol |want|, rtol = atol = "

@@ -63,19 +63,30 @@ def erdos_renyi(n: int, m: int, seed: int = 0) -> Graph:
 def barabasi_albert(n: int, m_attach: int, seed: int = 0) -> Graph:
     """Preferential attachment (power-law degrees), vectorized repeated-node
     trick: new vertex attaches to ``m_attach`` targets sampled from the
-    degree-weighted repeated-endpoint list."""
+    degree-weighted repeated-endpoint list.
+
+    The reference draws with ``rng.choice`` from a list that grows each
+    step (quadratic in n); here the list is one preallocated array and a
+    draw is ``rng.integers(0, len, m_attach)`` into it, which is what
+    ``choice`` draws, so the graph is the reference's, bit for bit.
+    """
     rng = np.random.default_rng(seed)
     m_attach = max(1, min(m_attach, n - 1))
-    repeated = list(range(m_attach))  # seed clique-ish endpoints
-    edges = []
+    repeated = np.empty(m_attach + 2 * m_attach * max(n - m_attach, 0), np.int64)
+    repeated[:m_attach] = np.arange(m_attach)  # seed clique-ish endpoints
+    size = m_attach
+    src, dst = [], []
     for v in range(m_attach, n):
-        pool = np.asarray(repeated)
-        targets = np.unique(rng.choice(pool, size=m_attach))
-        for t in targets:
-            edges.append((v, int(t)))
-        repeated.extend(targets.tolist())
-        repeated.extend([v] * len(targets))
-    return Graph.from_edges(np.asarray(edges, np.int64), n=n)
+        targets = np.unique(repeated[rng.integers(0, size, size=m_attach, dtype=np.int64)])
+        k = targets.size
+        src.append(np.full(k, v, np.int64))
+        dst.append(targets)
+        repeated[size:size + k] = targets
+        repeated[size + k:size + 2 * k] = v
+        size += 2 * k
+    if not src:
+        return Graph.from_edges(np.zeros((0, 2), np.int64), n=n)
+    return Graph.from_edges(np.stack([np.concatenate(src), np.concatenate(dst)], axis=1), n=n)
 
 
 def rmat(scale: int, edge_factor: int = 16, seed: int = 0,

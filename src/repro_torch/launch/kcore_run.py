@@ -5,6 +5,7 @@
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph chain --n 2000 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --mode block_gs
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --backend ell --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --metrics --flight f.json
 
 Prints the paper's measurement set: total messages, messages/active nodes
 per round, rounds to convergence, work bound, heartbeat-model overhead and
@@ -17,7 +18,9 @@ plain PyTorch versions run); with no card and no ``--device cpu`` it fails.
 ``--fused`` keeps the per-round bills on the device (core/runtime.py),
 bit-equal to the host loop (jacobi only). ``--mode block_gs`` sweeps 8
 vertex blocks in order within a round; ``--backend ell|ell_pallas`` names
-the ELL route, which every jacobi backend of the port runs.
+the ELL route, which every jacobi backend of the port runs. ``--metrics``
+dumps the metrics registry (JSON or Prometheus text), ``--flight`` the
+per-round flight ring with the invariant monitor's health verdict.
 """
 
 from __future__ import annotations
@@ -49,7 +52,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     ap.add_argument("--mesh", type=int, default=0, metavar="N", help="not ported yet")
     ap.add_argument("--out-of-core", action="store_true", help="not ported yet")
-    ap.add_argument("--metrics", action="store_true", help="not ported yet")
     ap.add_argument("--json", action="store_true")
     ap.add_argument(
         "--trace",
@@ -59,17 +61,40 @@ def parse_args(argv=None) -> argparse.Namespace:
         "(open in Perfetto / chrome://tracing)",
     )
     ap.add_argument(
+        "--metrics",
+        action="store_true",
+        help="dump the process metrics registry after the run "
+        "(see --metrics-format / --metrics-out)",
+    )
+    ap.add_argument(
+        "--metrics-format",
+        default="json",
+        choices=["json", "prom"],
+        help="stdout format for --metrics: structured JSON (default) or "
+        "the Prometheus text exposition format",
+    )
+    ap.add_argument(
+        "--metrics-out",
+        default=None,
+        metavar="PATH",
+        help="also write the metrics registry to a file (implies "
+        "--metrics); format inferred from the extension: .prom/.txt -> "
+        "Prometheus text, anything else -> JSON",
+    )
+    ap.add_argument(
         "--flight",
         default=None,
         metavar="OUT.json",
-        help="enable the convergence flight recorder and dump the per-round ring as JSON",
+        help="enable the convergence flight recorder + invariant monitor "
+        "and dump the per-round ring and health verdict as JSON",
     )
     args = ap.parse_args(argv)
+    if args.metrics_out:
+        args.metrics = True
     # what this slice does not port, and the ROADMAP.md item that will
     refused = [
         (args.mesh, "--mesh", "ROADMAP.md Queue A item 10 (sharded and multi-process paths)"),
         (args.out_of_core, "--out-of-core", "ROADMAP.md Queue A item 8 (out-of-core)"),
-        (args.metrics, "--metrics", "ROADMAP.md Queue A item 7 (serving, the CLIs, obs/metrics)"),
     ]
     for is_set, flag, item in refused:
         if is_set:
@@ -91,7 +116,8 @@ def decompose_report(g, args, core_ref=None):
     """Decompose ``g`` as ``args`` asks and build the report.
 
     ``core_ref`` is the BZ oracle's answer when the caller already has it
-    (it is computed here otherwise). Returns ``(report, result)``.
+    (it is computed here otherwise). With ``args.metrics`` the run's numbers
+    are also folded into the metrics registry. Returns ``(report, result)``.
     """
     import torch
 
@@ -142,18 +168,54 @@ def decompose_report(g, args, core_ref=None):
         },
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+    if args.metrics:
+        record_metrics(args, res, wall)
     return report, res
+
+
+def record_metrics(args, res, wall: float) -> None:
+    """Fold the run's headline numbers into the process metrics registry, as
+    the reference CLI does, so the dump is useful for a single decomposition."""
+    from repro_torch.obs import metrics
+
+    labels = {"graph": args.graph}
+    metrics.counter("kcore_rounds_total", **labels).inc(res.rounds)
+    metrics.counter("kcore_messages_total", **labels).inc(int(res.stats.total_messages))
+    metrics.gauge("kcore_compile_seconds", **labels).set(res.compile_s)
+    metrics.gauge("kcore_wall_seconds", **labels).set(wall)
+    for phase, secs in res.phase_s.items():
+        metrics.gauge("kcore_phase_seconds", graph=args.graph, phase=phase).set(secs)
+
+
+def dump_metrics(args) -> None:
+    """Print the metrics registry (and write ``--metrics-out``), as the
+    reference CLI does."""
+    from repro_torch.obs import metrics
+
+    if args.metrics_format == "prom":
+        print(metrics.to_prometheus(), end="")
+    else:
+        print(json.dumps({"metrics": metrics.to_json()}, indent=1))
+    if args.metrics_out:
+        prom_file = args.metrics_out.endswith((".prom", ".txt"))
+        with open(args.metrics_out, "w") as f:
+            if prom_file:
+                f.write(metrics.to_prometheus())
+            else:
+                json.dump({"metrics": metrics.to_json()}, f, indent=1)
+        print(f"metrics: {args.metrics_out} ({'prom' if prom_file else 'json'})")
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     from repro_torch.graph import generators
-    from repro_torch.obs import flight, trace
+    from repro_torch.obs import flight, health, trace
 
     if args.trace:
         trace.enable()
     if args.flight:
         flight.enable()
+        health.install()
 
     g = build_graph(args, generators)
     report, _res = decompose_report(g, args)
@@ -165,12 +227,15 @@ def main(argv=None) -> None:
     if args.trace:
         trace.export(args.trace)
         print(f"trace: {args.trace} ({len(trace.events())} events)")
+    if args.metrics:
+        dump_metrics(args)
     if args.flight:
         payload = flight.to_json()
+        payload["health"] = health.verdict()
         with open(args.flight, "w") as f:
             json.dump(payload, f)
         print(f"flight: {args.flight} (runs={payload['runs']} "
-              f"rounds={payload['rounds_recorded']})")
+              f"rounds={payload['rounds_recorded']} health={payload['health']['status']})")
     if not report["correct_vs_BZ"]:
         raise SystemExit("core numbers disagree with BZ oracle!")
 

@@ -1,14 +1,14 @@
 """Convergence flight recorder: a bounded ring of per-round records.
 
-The port's copy of ``repro.obs.flight``, trimmed to the static
-decomposition's capture sites (the per-vertex watchlist, the observer hook
-of the invariant monitor and the serving events come with later slices).
-It records WHAT THE CONVERGENCE DID, round by round, in every execution
-mode: frontier size, messages, changed/sender count, the estimate-decrease
-histogram, device vs host wall and dispatch — one ``FlightRecord`` per
-accounting round, held in a bounded ring.
+The port's copy of ``repro.obs.flight``, without the per-vertex watchlist
+and the serving events (``watch``, ``note_event``), which only the query
+server calls (ROADMAP.md Queue A item 7). It records WHAT THE CONVERGENCE
+DID, round by round, in every execution mode: frontier size, messages,
+changed/sender count, the estimate-decrease histogram, device vs host wall
+and dispatch — one ``FlightRecord`` per accounting round, held in a bounded
+ring.
 
-Capture points (both guarded by ``recorder().active``):
+Capture points (all guarded by ``recorder().active``):
 
 * the host round loop (``core/kcore.py``) records ONLINE, one record per
   productive round, with an exact per-round estimate-decrease histogram
@@ -17,7 +17,10 @@ Capture points (both guarded by ``recorder().active``):
   (``core/runtime.py``): per-round messages/changed/frontier are bit-equal
   to the host loop by construction, the device wall is amortized over the
   rounds, and the estimate-decrease histogram is the aggregate seed-vs-final
-  drop attached to the last round.
+  drop attached to the last round;
+* the streaming engine (``streaming/engine.py``) opens one run per churn
+  batch (round 0 = the seed rebroadcast + link handshakes), and temporal
+  window advances label those runs via ``set_context``.
 
 The per-round ``frontier`` is the ACCOUNTING active series
 (``MessageStats.active_per_round``), so a ring recorded under any mode — or
@@ -26,6 +29,9 @@ by the reference package — is directly comparable to any other.
 Zero cost when disabled: ``recorder()`` returns the shared no-op
 ``NULL_RECORDER`` whose ``.active`` is False, and every engine guards its
 estimate-vector device copies and per-round clock reads behind that flag.
+
+An observer hook (``add_observer``) streams run/round/run-end events to
+the online invariant monitor (``obs/health.py``) as rounds complete.
 """
 
 from __future__ import annotations
@@ -69,9 +75,9 @@ class FlightRecord:
 
     seq: int                # monotone over the recorder's lifetime
     run: int                # run id (one run = one convergence)
-    engine: str             # "static"
-    mode: str               # execution mode ("jacobi/segment", "fused")
-    batch: int | None       # batch id, None for static runs
+    engine: str             # "static" | "streaming" | "temporal"
+    mode: str               # execution mode ("jacobi/segment", "fused", ...)
+    batch: int | None       # batch / window-step id, None for static runs
     round: int              # accounting round index (0 = seed broadcast)
     frontier: int           # accounting active count this round
     messages: int
@@ -97,6 +103,9 @@ class _NullRecorder:
 
     __slots__ = ()
     active = False
+
+    def set_context(self, **ctx) -> None:
+        pass
 
     def start_run(self, *a, **kw) -> int:
         return -1
@@ -128,18 +137,54 @@ class FlightRecorder:
         self._seq = 0
         self._runs = 0
         self._run: dict | None = None      # open-run state
+        self._context: dict = {}           # merged into the next start_run
+        self._observers: list = []
+        self.last_run_rounds = 0           # rounds of the last FINISHED run
         self.rounds_recorded = 0           # total rounds ever recorded
+
+    # -------------------------------------------------------------- #
+    # run lifecycle
+    # -------------------------------------------------------------- #
+    def set_context(self, **ctx) -> None:
+        """Stash context merged into the NEXT ``start_run`` (then cleared).
+
+        The temporal layer uses this to label the streaming engine's runs
+        (``engine="temporal"``, the window step) without the engine knowing
+        who drives it.
+        """
+        with self._lock:
+            self._context.update(ctx)
 
     def start_run(self, engine: str, mode: str = "", batch: int | None = None,
                   dispatch: str = "", n: int = 0) -> int:
-        """Open a convergence run (closing any unfinished one); returns its id."""
+        """Open a convergence run; returns its id. An unfinished previous
+        run is closed implicitly (converged=None stays unreported)."""
         with self._lock:
+            if self._run is not None:
+                self._finish_run(converged=None)
+            ctx = self._context
+            self._context = {}
             run_id = self._runs
             self._runs += 1
-            self._run = {"id": run_id, "engine": engine, "mode": mode,
-                         "batch": batch, "dispatch": dispatch, "n": int(n),
-                         "rounds": 0}
+            self._run = {
+                "id": run_id,
+                "engine": str(ctx.get("engine", engine)),
+                "mode": mode,
+                "batch": ctx.get("step", batch),
+                "dispatch": dispatch,
+                "n": int(n),
+                "rounds": 0,
+            }
+            self._notify({"kind": "run_start", "run": run_id,
+                          "engine": self._run["engine"], "mode": mode,
+                          "batch": self._run["batch"], "n": int(n)})
             return run_id
+
+    def annotate_run(self, **kw) -> None:
+        """Update open-run fields (e.g. dispatch resolved after start)."""
+        with self._lock:
+            if self._run is not None:
+                self._run.update(kw)
 
     def record_round(self, frontier: int, messages: int, changed: int, *,
                      round: int | None = None, est=None, prev_est=None,
@@ -180,6 +225,7 @@ class FlightRecorder:
             self._seq += 1
             self.rounds_recorded += 1
             self._ring.append(rec)
+            self._notify({"kind": "round", "record": rec})
 
     def record_fused_rounds(self, msgs, changed, recv, *, frontier1: int,
                             device_s: float = 0.0, compiles: int = 0,
@@ -212,16 +258,48 @@ class FlightRecorder:
                     dispatch=dispatch or None)
 
     def end_run(self, converged: bool = True, **attrs) -> None:
-        """Close the open run (``converged`` and ``attrs`` are the reference's
-        arguments, read by its invariant monitor, which is not ported)."""
         with self._lock:
-            self._run = None
+            self._finish_run(converged=bool(converged), **attrs)
 
+    def _finish_run(self, converged, **attrs) -> None:
+        run, self._run = self._run, None
+        if run is None:
+            return
+        self.last_run_rounds = run["rounds"]
+        self._notify({"kind": "run_end", "run": run["id"],
+                      "engine": run["engine"], "mode": run["mode"],
+                      "batch": run["batch"], "rounds": run["rounds"],
+                      "converged": converged, **attrs})
+
+    # -------------------------------------------------------------- #
+    # observers (obs/health.py subscribes here)
+    # -------------------------------------------------------------- #
+    def add_observer(self, fn) -> None:
+        with self._lock:
+            if fn not in self._observers:
+                self._observers.append(fn)
+
+    def remove_observer(self, fn) -> None:
+        with self._lock:
+            if fn in self._observers:
+                self._observers.remove(fn)
+
+    def _notify(self, event: dict) -> None:
+        for fn in list(self._observers):
+            fn(event)
+
+    # -------------------------------------------------------------- #
+    # export
+    # -------------------------------------------------------------- #
     def records(self, last: int | None = None) -> list[FlightRecord]:
         """A snapshot of the retained records, oldest first."""
         with self._lock:
             recs = list(self._ring)
         return recs if last is None else recs[-int(last):]
+
+    @property
+    def runs(self) -> int:
+        return self._runs
 
     def to_json(self, last: int | None = None) -> dict:
         with self._lock:
@@ -239,6 +317,8 @@ class FlightRecorder:
             self._seq = 0
             self._runs = 0
             self._run = None
+            self._context = {}
+            self.last_run_rounds = 0
             self.rounds_recorded = 0
 
 
@@ -255,6 +335,17 @@ def recorder():
     NULL_RECORDER otherwise. Engines call this once per run and branch on
     ``.active`` — the disabled path is one attribute read."""
     return _DEFAULT if _enabled else NULL_RECORDER
+
+
+def get_recorder() -> FlightRecorder:
+    """The default recorder itself (regardless of the enabled flag) —
+    export/inspection paths (``--flight`` dumps, the invariant monitor's
+    ``install``)."""
+    return _DEFAULT
+
+
+def enabled() -> bool:
+    return _enabled
 
 
 def enable(capacity: int | None = None) -> None:

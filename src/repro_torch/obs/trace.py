@@ -1,11 +1,14 @@
 """Nested-span tracer with Chrome ``trace_event`` export (copy of
-``repro.obs.trace``, trimmed to what the static decomposition uses).
+``repro.obs.trace``).
 
 The hot paths carry spans permanently: ``kcore.decompose`` and
 ``kcore.round`` around the host round loop (core/kcore.py),
 ``fused-converge`` with its ``device-converge`` and ``stats-reconstruct``
-children (core/runtime.py), and ``kernel.build`` around each nvcc run
-(kernels/_build.py).
+children (core/runtime.py), the streaming engine's ``batch`` with its
+phases (streaming/engine.py), ``window.advance`` with ``window.diff``
+(temporal/window.py), and ``kernel.build`` around each nvcc run
+(kernels/_build.py). ``record`` adds the invariant monitor's
+``health.anomaly`` events (obs/health.py).
 
 Design constraints, in order:
 
@@ -137,6 +140,32 @@ class Tracer:
             return NULL_SPAN
         return Span(self, name, attrs)
 
+    def current(self) -> Span | None:
+        """The innermost open span on this thread, if any."""
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def annotate(self, **attrs) -> None:
+        """Attach attributes to the innermost open span (no-op otherwise)."""
+        if not self._enabled:
+            return
+        cur = self.current()
+        if cur is not None:
+            cur.set(**attrs)
+
+    def record(self, name: str, dur_s: float, **attrs) -> None:
+        """Record an already-elapsed duration as a span ending *now*.
+
+        For work measured elsewhere, where only the duration is known (the
+        invariant monitor's ``health.anomaly`` events, of duration 0): the
+        span is synthesized as ending at the current clock, so it lands
+        inside whatever span was open while the work ran.
+        """
+        if not self._enabled:
+            return
+        dur_ns = max(int(dur_s * 1e9), 0)
+        self._emit(name, time.perf_counter_ns() - dur_ns, dur_ns, attrs)
+
     # ------------------------------------------------------------------ #
     def events(self) -> list[dict]:
         """A snapshot copy of every finished event."""
@@ -161,6 +190,14 @@ class Tracer:
 _DEFAULT = Tracer()
 
 
+def get_tracer() -> Tracer:
+    return _DEFAULT
+
+
+def enabled() -> bool:
+    return _DEFAULT.enabled
+
+
 def enable() -> None:
     _DEFAULT.enable()
 
@@ -175,6 +212,18 @@ def reset() -> None:
 
 def span(name: str, **attrs):
     return _DEFAULT.span(name, **attrs)
+
+
+def current() -> Span | None:
+    return _DEFAULT.current()
+
+
+def annotate(**attrs) -> None:
+    _DEFAULT.annotate(**attrs)
+
+
+def record(name: str, dur_s: float, **attrs) -> None:
+    _DEFAULT.record(name, dur_s, **attrs)
 
 
 def events() -> list[dict]:

@@ -2,7 +2,9 @@
 
 Both CLIs run as subprocesses on the same seeded graph; every accounting
 field of their JSON reports must be equal (timings, the dispatch name and
-the port's added ``device`` field are not accounting).
+the port's added ``device`` field are not accounting), and so must their
+``--metrics`` registries (but the walls' values and the port's own
+``stage`` phase) and their ``--flight`` rings and health verdicts.
 """
 
 import json
@@ -63,12 +65,82 @@ def test_cli_trace_and_flight_outputs(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (("--mesh", "4"), "item 10"),
     (("--out-of-core",), "item 8"),
-    (("--metrics",), "item 7"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     out = _run("repro_torch.launch.kcore_run", "--graph", "FC", "--device", "cpu", *argv)
     assert out.returncode == 2
     assert f"ROADMAP.md Queue A {item}" in out.stderr
+
+
+def _objects(text):
+    """Every top-level JSON object printed in ``text``, in order."""
+    dec, out, i = json.JSONDecoder(), [], 0
+    while (i := text.find("{", i)) >= 0:
+        obj, end = dec.raw_decode(text, i)
+        out.append(obj)
+        i = end
+    return out
+
+
+# gauges whose values are walls; the port's ``stage`` phase has no reference twin
+WALL_GAUGES = ("kcore_wall_seconds", "kcore_compile_seconds", "kcore_phase_seconds")
+
+
+def _series(registry_json):
+    return {(name, json.dumps(s["labels"], sort_keys=True)): (s["type"], s.get("value"))
+            for name, series in registry_json.items() for s in series}
+
+
+@pytest.mark.parametrize("argv", [("--graph", "FC", "--scale", "0.05", "--fused"),
+                                  ("--graph", "EEN", "--scale", "0.02")], ids=["fused", "host"])
+def test_cli_metrics_equal_the_jax_cli(argv):
+    port = _objects(_run("repro_torch.launch.kcore_run", *argv, "--device", "cpu", "--json",
+                         "--metrics").stdout)
+    ref = _objects(_run("repro.launch.kcore_run", *argv, "--json", "--metrics").stdout)
+    assert {k: port[0][k] for k in ACCOUNTING} == {k: ref[0][k] for k in ACCOUNTING}
+    got, want = _series(port[1]["metrics"]), _series(ref[1]["metrics"])
+    extra = set(got) - set(want)
+    assert extra == {("kcore_phase_seconds", json.dumps({"graph": argv[1], "phase": "stage"}))}
+    for key, (kind, value) in want.items():
+        assert got[key][0] == kind, key
+        if key[0] not in WALL_GAUGES:
+            assert got[key][1] == value, key
+    assert got[("kcore_rounds_total", json.dumps({"graph": argv[1]}))][1] == port[0]["rounds"]
+    assert got[("obs_health_status", "{}")][1] == 1.0
+
+
+def test_cli_metrics_prometheus_and_files(tmp_path):
+    base = ("--graph", "chain", "--n", "200", "--device", "cpu", "--metrics-format", "prom")
+    out = _run("repro_torch.launch.kcore_run", *base, "--metrics-out", str(tmp_path / "m.prom"))
+    assert out.returncode == 0, out.stderr
+    text = (tmp_path / "m.prom").read_text()
+    assert 'kcore_rounds_total{graph="chain"} 100.0' in text
+    assert "# TYPE kcore_messages_total counter" in text and text in out.stdout
+    assert f"metrics: {tmp_path / 'm.prom'} (prom)" in out.stdout
+    out = _run("repro_torch.launch.kcore_run", "--graph", "chain", "--n", "200", "--device", "cpu",
+               "--metrics-out", str(tmp_path / "m.json"))
+    assert out.returncode == 0, out.stderr
+    saved = json.loads((tmp_path / "m.json").read_text())["metrics"]
+    assert saved["kcore_rounds_total"][0]["value"] == 100.0
+
+
+def test_cli_flight_and_health_equal_the_jax_cli(tmp_path):
+    argv = ("--graph", "ba", "--n", "400", "--fused")
+    port = _run("repro_torch.launch.kcore_run", *argv, "--device", "cpu",
+                "--flight", str(tmp_path / "p.json"))
+    ref = _run("repro.launch.kcore_run", *argv, "--flight", str(tmp_path / "r.json"))
+    assert port.returncode == ref.returncode == 0, port.stderr
+    assert port.stdout.splitlines()[-1].replace("p.json", "") == \
+        ref.stdout.splitlines()[-1].replace("r.json", "")
+    got, want = (json.loads((tmp_path / f).read_text()) for f in ("p.json", "r.json"))
+    assert got["health"] == want["health"] and got["health"]["status"] == "ok"
+    assert got["health"]["runs_seen"] == 1
+    for k in ("capacity", "runs", "rounds_recorded", "dropped"):
+        assert got[k] == want[k], k
+    keys = ("run", "engine", "mode", "batch", "round", "frontier", "messages", "changed",
+            "est_rises", "drop_hist", "est_sum")
+    assert [{k: r[k] for k in keys} for r in got["records"]] == \
+        [{k: r[k] for k in keys} for r in want["records"]]
 
 
 def test_cli_refuses_fused_block_gs_as_the_reference_does():

@@ -1,5 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-decomposition through the k-core kernels, serving through the flash kernel
+decomposition through the k-core kernels, the streaming engine and the
+sliding window on ``segment_sum`` against the CPU (and a window checkpoint
+restored onto the card), serving through the flash kernel
 against the same weights served on the CPU, and DIN through the
 embedding-bag kernel against the CPU and a float64 evaluation.
 
@@ -174,6 +176,60 @@ def test_streaming_modes_on_the_card_equal_the_cpu(cuda, mode):
             (want.rounds, want.mode, want.region_size, want.seed_strategy)
         for k in ("messages_per_round", "active_per_round", "changed_per_round"):
             np.testing.assert_array_equal(getattr(got.stats, k), getattr(want.stats, k))
+
+
+def _same_step(got, want):
+    assert (got.step, got.lo, got.hi, got.m) == (want.step, want.lo, want.hi, want.m)
+    r, w = got.result, want.result
+    np.testing.assert_array_equal(r.core, w.core)
+    assert (r.rounds, r.mode, r.region_size, r.seed_strategy, r.csr_compactions) == \
+        (w.rounds, w.mode, w.region_size, w.seed_strategy, w.csr_compactions)
+    for k in ("messages_per_round", "active_per_round", "changed_per_round"):
+        np.testing.assert_array_equal(getattr(r.stats, k), getattr(w.stats, k))
+
+
+@pytest.mark.parametrize("mode", ["dense", "compact", "fused", "auto"])
+def test_window_on_the_card_equals_the_cpu(cuda, mode):
+    from repro_torch.streaming import StreamingConfig
+    from repro_torch.temporal import WindowedKCoreEngine, check_step, temporal_snap_analogue
+
+    log = temporal_snap_analogue("EEN", 0.05, seed=0, remove_frac=0.15)
+    stride = len(log) // 10
+    config = StreamingConfig(frontier=mode)
+    card = WindowedKCoreEngine(log, 3 * stride, stride, config=config)
+    cpu = WindowedKCoreEngine(log, 3 * stride, stride, config=config, device="cpu")
+    assert card.engine.device.type == "cuda"
+    for k in (1, 2, 1, 1, 3, 1):
+        sk.launches = 0
+        got = card.advance(k)
+        assert sk.launches > 0
+        _same_step(got, cpu.advance(k))
+        assert check_step(card, got)
+
+
+def test_window_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.temporal import WindowedKCoreEngine, temporal_barabasi_albert
+
+    log = temporal_barabasi_albert(2000, 4, seed=1, remove_frac=0.15)
+    cpu = WindowedKCoreEngine(log, 3000, 1000, device="cpu")
+    for _ in range(3):
+        cpu.advance()
+    save_checkpoint(tmp_path, cpu.steps_taken, cpu.state_dict())
+    card = WindowedKCoreEngine(log, 3000, 1000)
+    state, step = restore_checkpoint(tmp_path, card.state_dict())
+    card.load_state_dict(state)
+    assert step == 3 and card.engine.device.type == "cuda" and card.steps_taken == 3
+    while not cpu.done:
+        sk.launches = 0
+        got = card.advance()
+        assert sk.launches > 0
+        _same_step(got, cpu.advance())
+    like = {"est": torch.zeros(4, dtype=torch.int32, device=cuda), "n": np.zeros(())}
+    save_checkpoint(tmp_path, 9, {"est": torch.arange(4, dtype=torch.int32), "n": np.ones(())})
+    out, _ = restore_checkpoint(tmp_path, like)
+    assert out["est"].device.type == "cuda" and out["est"].tolist() == [0, 1, 2, 3]
+    assert isinstance(out["n"], np.ndarray) and float(out["n"]) == 1.0
 
 
 # tolerances of tests/test_kernels.py:160 (reasons in tests/test_torch_flash_attention.py)

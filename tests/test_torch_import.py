@@ -29,6 +29,10 @@ names = ["repro_torch"] + sorted(
     m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
 for name in names:
     importlib.import_module(name)
+for name in ("repro_torch.temporal", "repro_torch.temporal.events", "repro_torch.temporal.window",
+             "repro_torch.temporal.replay", "repro_torch.checkpoint", "repro_torch.obs.health",
+             "repro_torch.obs.metrics", "repro_torch.streaming.server"):
+    assert name in names, name
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 from repro_torch.kernels import _build
@@ -79,6 +83,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.core.kcore import kcore_decompose
     from repro_torch.graph import generators
     from repro_torch.platform import resolve_device
+    from repro_torch.temporal import WindowedKCoreEngine, replay, temporal_barabasi_albert
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, _ = generators.fig1_example()
@@ -86,6 +91,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
         kcore_decompose(g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    log = temporal_barabasi_albert(20, 2, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WindowedKCoreEngine(log, 10, 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        replay(log, 10, 5)
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -104,9 +114,15 @@ def test_dispatch_plan_follows_the_device():
 def test_not_ported_combinations_name_their_roadmap_item():
     from repro_torch.graph import generators
     from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine
+    from repro_torch.temporal import WindowedKCoreEngine, replay, temporal_barabasi_albert
 
     g = generators.chain(10)
+    log = temporal_barabasi_albert(20, 2, seed=0)
     for config, mesh in ((StreamingConfig(frontier="sharded"), None),
                          (StreamingConfig(frontier="fused"), object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
             StreamingKCoreEngine(g, config, mesh=mesh, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
+            WindowedKCoreEngine(log, 10, 5, config=config, mesh=mesh, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
+            replay(log, 10, 5, config=config, mesh=mesh, device="cpu")
