@@ -9,7 +9,10 @@ and ``segment_sum`` kernels, in its jacobi and block_gs modes), the
 streaming engine (``repro_torch.streaming``: churn batches re-converged on
 ``segment_sum``), the temporal path (``repro_torch.temporal``: a window
 sliding over a timestamped edge stream, each advance one streaming batch,
-checkpointed through ``repro_torch.checkpoint``), LM serving (``launch.serve``, prefill attention
+checkpointed through ``repro_torch.checkpoint``), k-core serving (``repro_torch.streaming``'s
+``KCoreServer`` behind ``ConcurrentKCoreServer`` and ``obs.http``, and ``launch.kcore_serve``:
+reads of a published snapshot while the engine re-converges on the kernels), LM serving
+(``launch.serve``, prefill attention
 on the flash-attention kernel) and DIN (``launch.din_serve``, the context bag
 on the embedding-bag kernel); each kernel is hand-written CUDA under
 ``src/repro_torch/kernels``. Phases, each of which must pass:
@@ -130,7 +133,33 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    largest magnitude compared); the top 100 are compared allowing for ties
    (``checks.check_topk``).
 
-17. The ``kernels`` JSON line: each kernel's launches in the main path's
+17. The serving gate: ``benchmarks/serving_baseline.json``'s ``mixed`` ratio
+   (1.2018) reproduced exactly at its settings (``benchmarks/serving_mixed.py``'s
+   ``run_records`` and ``summarize`` on the port: one writer advancing a
+   window over the EEN trace in ``fused`` mode through the concurrent front
+   end while 4 readers hammer the snapshot with the benchmark's read mix),
+   every read bit-equal to its version's registered fixpoint (checked after
+   the readers join), checked boundaries BZ-exact, and the benchmark's
+   acceptance check: read p99 below max(mean update wall, 0.05 s).
+18. Full size, served: SPR (phase 6's graph and BZ cores) behind
+   ``KCoreServer(..., StreamingConfig(frontier="fused"))``,
+   ``ConcurrentKCoreServer`` (4 read workers) and the HTTP endpoint; 2 ticks
+   of churn 0.002 (``kcore_serve._tick_rng``), each applied by a writer
+   thread while 4 readers hammer the snapshot (no ``core_asof``: a static
+   server has no boundaries) and the main thread polls ``/query/core``,
+   ``/query/stats``, ``/metrics`` and ``/healthz``; after each tick the
+   snapshot equals BZ, every read and HTTP read equals its version's
+   snapshot, and reads completed during re-convergence. Then a drain to a
+   checkpoint, a restore into a fresh server, and tick 2 on both: equal in
+   cores and every ``BatchResult`` accounting field; ``segment_sum``
+   bit-exact on the served live arcs. Prints the init wall, each tick's
+   phase walls, rounds and messages against a fused scratch run, the flip
+   walls, read p50/p99 under load and idle, the longest stale window, HTTP
+   p50, the checkpoint's bytes and walls, peak device memory and launches.
+19. ``python -m repro_torch.launch.kcore_serve --graph EEN --scale 0.05
+   --batches 2 --queries 10000 --frontier fused --concurrent 2 --listen 0
+   --verify`` in a subprocess on the card: exit 0, every tick verified.
+20. The ``kernels`` JSON line: each kernel's launches in the main path's
    runs, its largest error against its plain version, its time a call and
    on the device (flash attention's under ``timed``), the plain version's,
    the library call's and the bound.
@@ -1199,6 +1228,434 @@ def temporal_full(torch, dev, g, spr_scale, launches) -> int:
     return err
 
 
+# the serving phases: the gate's readers (benchmarks/serving_mixed.py) and its acceptance floor;
+# the served SPR's churn a tick (phase 10's first batch) and the CLI run on the card
+P99_WALL_FLOOR_S = 0.05
+SERVED = {"churn": 0.002, "ticks": 2, "readers": 4, "ids_per_read": 32, "seed": 0}
+SERVE_CLI = ("--graph", "EEN", "--scale", "0.05", "--batches", "2", "--queries", "10000",
+             "--frontier", "fused", "--concurrent", "2", "--listen", "0", "--verify")
+
+
+def hammer(front, seed: int, stop, busy, out: dict, ids_per_read: int) -> None:
+    """``benchmarks/serving_mixed.py::_reader``: sampled reads of the published
+    snapshot until stopped, recording each read's wall, the snapshot's age,
+    whether the writer was busy, the read's end on the host clock, and the
+    (request, response) pair that is checked after the threads join."""
+    import numpy as np
+
+    from repro_torch.streaming import Request
+
+    rng = np.random.default_rng(seed)
+    n = front.server.engine.n
+    walls, ages, ends, pairs, during = [], [], [], [], 0
+    while not stop.is_set():
+        p = rng.random()
+        v = rng.integers(0, n, size=ids_per_read)
+        snap = front.snapshot
+        if p < 0.55:
+            req = Request(op="core", vertices=v)
+        elif p < 0.75:
+            req = Request(op="in_kcore", vertices=v, k=max(snap.max_k - 1, 1))
+        elif p < 0.9 and len(snap.asof):
+            req = Request(op="core_asof", t=float(rng.choice(snap.asof.times)), vertices=v)
+        else:
+            req = Request(op="members", k=max(snap.max_k, 1))
+        resp = front.read(req)
+        if busy.is_set():
+            during += 1
+        walls.append(resp.wall_s)
+        ages.append(front.snapshot_age_s())
+        ends.append(time.perf_counter())
+        pairs.append((req, resp))
+    out.update(walls=walls, ages=ages, ends=ends, during=during, pairs=pairs)
+
+
+def start_readers(front, n_readers: int, ids_per_read: int):
+    import threading
+
+    stop, busy = threading.Event(), threading.Event()
+    outs = [{} for _ in range(n_readers)]
+    threads = [threading.Thread(target=hammer, args=(front, 1000 + i, stop, busy, outs[i],
+                                                     ids_per_read), daemon=True)
+               for i in range(n_readers)]
+    for th in threads:
+        th.start()
+    return stop, busy, outs, threads
+
+
+def join_readers(stop, threads) -> bool:
+    stop.set()
+    for th in threads:
+        th.join(timeout=60)
+    return not any(th.is_alive() for th in threads)
+
+
+def verify_reads(pairs, registry) -> tuple[int, int]:
+    """``benchmarks/serving_mixed.py::_verify_responses``, after the readers
+    joined: every response bit-equal to the registered fixpoint of its
+    version (a members answer computed once a version and k). Returns
+    (checked, failures); only an as-of miss may fail, as there."""
+    import numpy as np
+
+    checked, bad, members = 0, 0, {}
+    for req, resp in pairs:
+        if not resp.ok:
+            bad += req.op != "core_asof"
+            continue
+        snap = registry.get(resp.version)
+        if snap is None:
+            bad += 1
+            continue
+        if req.op == "core":
+            ok = np.array_equal(resp.payload, snap.core[np.asarray(req.vertices)])
+        elif req.op == "in_kcore":
+            ok = np.array_equal(resp.payload, snap.core[np.asarray(req.vertices)] >= req.k)
+        elif req.op == "members":
+            key = (resp.version, req.k)
+            if key not in members:
+                members[key] = np.flatnonzero(snap.core >= req.k)
+            ok = np.array_equal(resp.payload, members[key])
+        else:
+            bt, core = snap.asof.asof(req.t)
+            ok = resp.payload[0] == bt and np.array_equal(resp.payload[1],
+                                                          core[np.asarray(req.vertices)])
+        checked += 1
+        bad += not ok
+    return checked, bad
+
+
+def reader_summary(outs) -> dict:
+    import numpy as np
+
+    walls = np.concatenate([np.asarray(o.get("walls", ()), float) for o in outs])
+    ages = np.concatenate([np.asarray(o.get("ages", ()), float) for o in outs])
+    return {"reads": int(walls.size), "during": int(sum(o.get("during", 0) for o in outs)),
+            "p50_ms": float(np.percentile(walls, 50)) * 1e3 if walls.size else 0.0,
+            "p99_ms": float(np.percentile(walls, 99)) * 1e3 if walls.size else 0.0,
+            "stale_ms_max": float(ages.max()) * 1e3 if ages.size else 0.0,
+            "ends": [t for o in outs for t in o.get("ends", ())],
+            "pairs": [p for o in outs for p in o.get("pairs", ())]}
+
+
+def serving_gate(torch, dev, launches) -> None:
+    """Phase 17: ``benchmarks/serving_baseline.json``'s ``mixed`` ratio at its
+    settings (``benchmarks/serving_mixed.py::run_records`` and ``summarize``):
+    one writer replays the EEN trace through the windowed server while the
+    benchmark's readers hammer the published snapshot; every read checked
+    against its version's fixpoint after the readers join, and the
+    benchmark's acceptance check on the read p99."""
+    import numpy as np
+
+    from repro_torch.core.bz import bz_core_numbers
+    from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.graph import generators
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.streaming import ConcurrentKCoreServer, KCoreServer, StreamingConfig
+    from repro_torch.temporal import WindowedKCoreEngine, temporal_snap_analogue
+
+    t_phase = time.perf_counter()
+    base = json.loads((ROOT / "benchmarks" / "serving_baseline.json").read_text())
+    cfg = base["settings"]
+    print(f"  settings {cfg}")
+    log = temporal_snap_analogue(cfg["trace"], scale=cfg["target_n"]
+                                 / generators.SNAP_BY_ABBREV[cfg["trace"]].n, seed=0,
+                                 remove_frac=cfg["snap_remove_frac"])
+    stride = max(len(log) // (cfg["ticks"] + 2), 1)
+    weng = WindowedKCoreEngine(log, cfg["window_strides"] * stride, stride, by="count",
+                               config=StreamingConfig(frontier=cfg["frontier"]), device=dev)
+    front = ConcurrentKCoreServer(KCoreServer(windowed=weng, asof_capacity=cfg["ticks"] + 2),
+                                  read_workers=cfg["readers"])
+    registry = {front.snapshot.version: front.snapshot}
+    stop, busy, outs, threads = start_readers(front, cfg["readers"], cfg["ids_per_read"])
+    ratios, walls, bz_ok, seg, tick = [], [], True, 0, 0
+    try:
+        while not weng.done and tick < cfg["ticks"]:
+            hk.launches = sk.launches = 0
+            t0 = time.perf_counter()
+            busy.set()
+            ws = front.advance_window()
+            busy.clear()
+            walls.append(time.perf_counter() - t0)
+            launches["kcore_hindex"] += hk.launches
+            launches["segment_sum"] += sk.launches
+            seg += sk.launches
+            snap = front.snapshot
+            registry[snap.version] = snap
+            scratch = kcore_decompose(weng.window_graph(), device=dev)
+            ratios.append(round(ws.result.total_messages
+                                / max(scratch.stats.total_messages, 1), 4))
+            if tick % cfg["verify_every"] == 0:
+                bz_ok = bz_ok and bool((snap.core == bz_core_numbers(weng.window_graph())).all())
+            print(f"    tick {tick}: m {ws.m}, {ws.result.rounds} rounds, "
+                  f"{ws.result.total_messages} messages, ratio {ratios[-1]}, update "
+                  f"{walls[-1] * 1e3:.2f} ms, version {snap.version}")
+            tick += 1
+    finally:
+        joined = join_readers(stop, threads)
+    rs = reader_summary(outs)
+    checked, bad = verify_reads(rs["pairs"], registry)
+    mean_update_s = sum(walls) / max(len(walls), 1)
+    mixed = round(float(np.mean(ratios)), 4)
+    print(f"  reads {rs['reads']} ({rs['during']} during re-convergence), p50 "
+          f"{rs['p50_ms']:.4f} ms, p99 {rs['p99_ms']:.4f} ms, longest stale window "
+          f"{rs['stale_ms_max']:.2f} ms; mean update {mean_update_s * 1e3:.2f} ms; flips "
+          f"{front.box.flips}; segment_sum launches {seg}")
+    check(joined and bz_ok and tick == cfg["ticks"] and mixed == base["mean_ratio"]["mixed"],
+          f"serving gate mixed: every checked tick BZ-exact, mean ratio {mixed} == "
+          f"{base['mean_ratio']['mixed']}")
+    check(checked > 0 and bad == 0, f"serving gate: {checked} reads bit-equal to the registered "
+                                    f"fixpoint of their version (checked after the join)")
+    check(rs["p99_ms"] / 1e3 < max(mean_update_s, P99_WALL_FLOOR_S),
+          f"serving gate: read p99 {rs['p99_ms']:.4f} ms below max(mean update wall, "
+          f"{P99_WALL_FLOOR_S} s)")
+    if dev.type == "cuda":
+        check(seg > 0, "serving gate launched segment_sum")
+    front.drain(save=False)
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def http_get(url: str):
+    """(status, body, wall) of one GET; an HTTP error's status and body."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as err:
+        return err.code, err.read(), time.perf_counter() - t0
+
+
+def serving_full(torch, dev, g, core_bz, smi, launches) -> int:
+    """Phase 18: SPR served at full size. A static server on the card behind
+    the concurrent front end and the HTTP endpoint; per tick a churn batch
+    applied by a writer thread while 4 readers hammer the snapshot and the
+    main thread polls the HTTP routes; the snapshot BZ-checked and every
+    read checked against its version after each tick; then a drain to a
+    checkpoint, a restore into a fresh server, and one more tick on both.
+    Returns the largest segment_sum error on the served live arcs."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core import dispatch
+    from repro_torch.core.bz import bz_core_numbers
+    from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.graph.structs import Graph
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.launch.kcore_serve import _tick_rng
+    from repro_torch.obs.http import start_server
+    from repro_torch.streaming import (ConcurrentKCoreServer, KCoreServer, Request,
+                                       StreamingConfig, random_churn_batch)
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    config = StreamingConfig(frontier="fused")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    hk.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    server = KCoreServer(g, config, device=dev)
+    init_s = time.perf_counter() - t0
+    launches["kcore_hindex"] += hk.launches
+    launches["segment_sum"] += sk.launches
+    seen = {"kcore_hindex": hk.launches, "segment_sum": sk.launches}
+    check(np.array_equal(server.core, core_bz), "served SPR: the initial cores equal BZ")
+    tmp = tempfile.mkdtemp(prefix="kcore_serve_ckpt_")
+    front = ConcurrentKCoreServer(server, read_workers=SERVED["readers"], checkpoint_dir=tmp)
+    httpd = start_server(port=0)
+    httpd.add_registry(server.metrics)
+    httpd.attach_query_backend(front)
+    flips = []
+    flip = front._flip
+
+    def timed_flip():
+        t = time.perf_counter()
+        snap = flip()
+        flips.append(time.perf_counter() - t)
+        return snap
+
+    front._flip = timed_flip
+    print(f"  server on SPR (n={g.n}, m={g.m}) with its initial decomposition in {init_s:.2f} s "
+          f"(launches kcore_hindex {hk.launches}, segment_sum {sk.launches}); HTTP on "
+          f"{httpd.url}")
+    registry = {front.snapshot.version: front.snapshot}
+    err, http_walls, http_pairs = 0, [], []
+    try:
+        for tick in range(SERVED["ticks"]):
+            rng = _tick_rng(SERVED["seed"], tick)
+            b = max(2, int(SERVED["churn"] * server.engine.m))
+            batch = random_churn_batch(server.engine.graph, b // 2, b - b // 2, rng)
+            qrng = np.random.default_rng(tick)
+            stop, busy, outs, threads = start_readers(front, SERVED["readers"],
+                                                      SERVED["ids_per_read"])
+            box = {}
+
+            def write():
+                box["res"] = front.update(batch)
+
+            hk.launches = sk.launches = 0
+            writer = threading.Thread(target=write, daemon=True)
+            t0 = time.perf_counter()
+            busy.set()
+            writer.start()
+            codes = set()
+            while True:
+                v = qrng.integers(0, g.n, 8)
+                code, body, wall = http_get(f"{httpd.url}/query/core?v="
+                                            f"{','.join(map(str, v.tolist()))}")
+                codes.add(code)
+                http_walls.append(wall)
+                http_pairs.append((v, json.loads(body)))
+                for route in ("/query/stats", "/metrics", "/healthz"):
+                    codes.add(http_get(httpd.url + route)[0])
+                if not writer.is_alive():
+                    break
+            writer.join()
+            busy.clear()
+            wall = time.perf_counter() - t0
+            joined = join_readers(stop, threads)
+            tick_launches = {"kcore_hindex": hk.launches, "segment_sum": sk.launches}
+            for k, c in tick_launches.items():
+                launches[k] += c
+                seen[k] += c
+            res = box["res"]
+            old_version = front.snapshot.version - 1
+            snap = front.snapshot
+            registry[snap.version] = snap
+            t1 = time.perf_counter()
+            cur = server.engine.graph
+            bz_ok = bool((snap.core == bz_core_numbers(cur)).all())
+            t_bz = time.perf_counter() - t1
+            scratch = kcore_decompose(cur, fused=True, device=dev)
+            rs = reader_summary(outs)
+            checked, bad = verify_reads(rs["pairs"], registry)
+            # the longest a reader was still answered from the previous
+            # fixpoint after the writer had begun the batch
+            stale_s = max((t - t0 for t, (_, resp) in zip(rs["ends"], rs["pairs"])
+                           if resp.version == old_version and t > t0), default=0.0)
+            hbad = sum(not (out.get("ok") and out["payload"]
+                            == registry[out["version"]].core[v].tolist())
+                       for v, out in http_pairs)
+            print(f"    tick {tick}: {b} edges asked ({batch.insert.shape[0]} inserts, "
+                  f"{batch.delete.shape[0]} deletes), m {cur.m}; update wall {wall:.4f} s = "
+                  f"patch_s {res.patch_s:.4f} + seed_s {res.seed_s:.4f} (stage_s "
+                  f"{res.stage_s:.4f}) + converge_s {res.converge_s:.4f} + the rest; "
+                  f"{res.rounds} rounds, {res.total_messages} messages "
+                  f"({res.total_messages / max(scratch.stats.total_messages, 1):.4f} of a fused "
+                  f"scratch run: {scratch.rounds} rounds, {scratch.stats.total_messages}); "
+                  f"flip {flips[-1] * 1e3:.3f} ms; reads {rs['reads']} ({rs['during']} during "
+                  f"re-convergence), p50 {rs['p50_ms']:.4f} ms, p99 {rs['p99_ms']:.4f} ms, "
+                  f"longest stale read {stale_s * 1e3:.1f} ms after the writer began; HTTP "
+                  f"polls {len(http_pairs)}; BZ {t_bz:.1f} s; the server's launches "
+                  f"segment_sum {tick_launches['segment_sum']}, kcore_hindex "
+                  f"{tick_launches['kcore_hindex']}")
+            check(joined and bz_ok and res.converged,
+                  f"served SPR tick {tick}: the published snapshot equals BZ")
+            check(checked == rs["reads"] > 0 and bad == 0 and hbad == 0,
+                  f"served SPR tick {tick}: {checked} reads and {len(http_pairs)} HTTP reads "
+                  f"bit-equal to their version's snapshot")
+            check(rs["during"] > 0, f"served SPR tick {tick}: {rs['during']} reads completed "
+                                    f"during re-convergence")
+            check(codes == {200}, f"served SPR tick {tick}: /query/core, /query/stats, /metrics "
+                                  f"and /healthz answered 200 ({sorted(codes)})")
+            if on_card:
+                check(tick_launches["segment_sum"] > 0,
+                      f"served SPR tick {tick} launched segment_sum")
+            http_pairs.clear()
+        # idle reads: one reader, the writer idle
+        idle = np.asarray([front.read(Request(op="core", vertices=np.arange(i, i + 32))).wall_s
+                           for i in range(2000)]) * 1e3
+        t0 = time.perf_counter()
+        path = front.drain(step=SERVED["ticks"])
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        code_drained = http_get(f"{httpd.url}/query/max_k")[0]
+        t0 = time.perf_counter()
+        fresh = KCoreServer(Graph.from_edges(np.zeros((0, 2), np.int64), n=g.n), config,
+                            device=dev)
+        state, step = restore_checkpoint(tmp, like=fresh.state_dict())
+        fresh.load_state_dict(state)
+        restore_s = time.perf_counter() - t0
+    finally:
+        httpd.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  idle reads (one reader, no writer): p50 {np.percentile(idle, 50):.4f} ms, p99 "
+          f"{np.percentile(idle, 99):.4f} ms; HTTP /query/core p50 "
+          f"{np.percentile(http_walls, 50) * 1e3:.3f} ms over {len(http_walls)} polls")
+    print(f"  drain to a checkpoint at step {step}: {nbytes} bytes, {save_s:.2f} s; restored into "
+          f"a fresh server (built on an empty graph, so no decomposition of SPR) in "
+          f"{restore_s:.2f} s; a read after the drain answered {code_drained}")
+    check(code_drained == 503, "served SPR: a drained front end answers 503")
+    check(np.array_equal(fresh.core, server.core) and fresh.engine.m == server.engine.m,
+          "served SPR: the restored server holds the drained cores and graph")
+    rng = _tick_rng(SERVED["seed"], SERVED["ticks"])
+    b = max(2, int(SERVED["churn"] * server.engine.m))
+    batch = random_churn_batch(server.engine.graph, b // 2, b - b // 2, rng)
+    hk.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    a = server.update(batch)
+    wall_a = time.perf_counter() - t0
+    seg_a = sk.launches
+    launches["kcore_hindex"] += hk.launches
+    launches["segment_sum"] += seg_a
+    seen["segment_sum"] += seg_a
+    t0 = time.perf_counter()
+    c = fresh.update(batch)
+    wall_c = time.perf_counter() - t0
+    cur = server.engine.graph
+    check(same_batch(a, c) and np.array_equal(a.core, bz_core_numbers(cur)),
+          f"served SPR tick {SERVED['ticks']}: the restored server equals the uninterrupted one "
+          f"in cores, per-round bills and every BatchResult accounting field, and BZ "
+          f"({a.rounds} rounds, {a.total_messages} messages, {seg_a} segment_sum "
+          f"launches; no readers: update wall {wall_a:.4f} / {wall_c:.4f} s = patch_s "
+          f"{a.patch_s:.4f} / {c.patch_s:.4f} + seed_s {a.seed_s:.4f} / {c.seed_s:.4f} + "
+          f"converge_s {a.converge_s:.4f} / {c.converge_s:.4f} + the rest)")
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    # the segment sum over the served graph's live arcs at the degree seed
+    csr = server.engine.csr
+    src, dst, row_ptr = dispatch.stage_arcs(csr.src[csr.live], csr.dst[csr.live], csr.n, dev)
+    deg = torch.as_tensor(csr.deg, dtype=torch.int32, device=dev)
+    err = segsum_held(torch, [(f"the served graph after tick {SERVED['ticks']}",
+                               first_probe_hits(torch, deg, deg.index_select(0, dst), src),
+                               row_ptr)], "at the served graph's live arcs")
+    print(f"  {smi}: init {init_s:.2f} s; flips {', '.join(f'{x * 1e3:.3f}' for x in flips)} "
+          f"ms; peak_bytes {peak}; the server's launches in this phase kcore_hindex "
+          f"{seen['kcore_hindex']}, segment_sum {seen['segment_sum']}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del server, fresh, front, src, dst, row_ptr, deg
+    return err
+
+
+def serve_cli(dev) -> None:
+    """Phase 19: ``repro_torch.launch.kcore_serve`` in a subprocess on the card."""
+    import os
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    argv = [sys.executable, "-m", "repro_torch.launch.kcore_serve", *SERVE_CLI]
+    if dev.type != "cuda":
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("# final_stats="):
+            print(f"    {line}")
+    cols = next((line.split(",") for line in lines if line.startswith("tick,")), [])
+    rows = [dict(zip(cols, line.split(","))) for line in lines if line[:1].isdigit()]
+    check(out.returncode == 0 and len(rows) == 2 and all(r["verified"] == "True" for r in rows),
+          f"kcore_serve {' '.join(SERVE_CLI)}: exit {out.returncode}, {len(rows)} ticks, every "
+          f"one verified ({wall:.1f} s){'' if out.returncode == 0 else ': ' + out.stderr[-2000:]}")
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -1521,7 +1978,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"and restarted warm")
     err = temporal_full(torch, dev, g, spr_scale, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
-    del g, jacobi, table1
+    del jacobi, table1       # g and core_bz stay for phase 18
     if device == "cuda":
         torch.cuda.empty_cache()
     # ------------------------------------------------------------------ #
@@ -1542,9 +1999,27 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"{' and '.join(map(str, DIN['serve']))}, retrieval over {DIN['n_candidates']} "
           f"candidates")
     launches["embedding_bag"] = din_full_width(torch, dev, small=device != "cuda")
+    if device == "cuda":
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ #
-    phase("17. kernels")
+    phase("17. the serving gate (benchmarks/serving_baseline.json)")
+    serving_gate(torch, dev, launches)
+
+    # ------------------------------------------------------------------ #
+    phase(f"18. full size, served: SPR at scale {spr_scale} behind the concurrent front end and "
+          f"the HTTP endpoint, {SERVED['ticks']} ticks of churn {SERVED['churn']}, drained and "
+          f"restored")
+    err = serving_full(torch, dev, g, core_bz, smi, launches)
+    stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
+    del g, core_bz
+
+    # ------------------------------------------------------------------ #
+    phase("19. the kcore_serve CLI on the card")
+    serve_cli(dev)
+
+    # ------------------------------------------------------------------ #
+    phase("20. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]

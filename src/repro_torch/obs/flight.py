@@ -1,12 +1,11 @@
 """Convergence flight recorder: a bounded ring of per-round records.
 
-The port's copy of ``repro.obs.flight``, without the per-vertex watchlist
-and the serving events (``watch``, ``note_event``), which only the query
-server calls (ROADMAP.md Queue A item 7). It records WHAT THE CONVERGENCE
+The port's copy of ``repro.obs.flight``. It records WHAT THE CONVERGENCE
 DID, round by round, in every execution mode: frontier size, messages,
 changed/sender count, the estimate-decrease histogram, device vs host wall
 and dispatch — one ``FlightRecord`` per accounting round, held in a bounded
-ring.
+ring — plus the query server's out-of-band events (``note_event``: snapshot
+flips, checkpoint saves) in a ring of their own.
 
 Capture points (all guarded by ``recorder().active``):
 
@@ -26,6 +25,12 @@ The per-round ``frontier`` is the ACCOUNTING active series
 (``MessageStats.active_per_round``), so a ring recorded under any mode — or
 by the reference package — is directly comparable to any other.
 
+Opt-in per-vertex trajectories: ``watch(ids)`` selects a watchlist of
+vertex ids whose estimate is sampled at every round that hands the recorder
+a host estimate vector (``timelines``, ``trajectory``). The engines already
+pass host numpy vectors, so sampling reads nothing from the device, and an
+empty watchlist costs one size test a round.
+
 Zero cost when disabled: ``recorder()`` returns the shared no-op
 ``NULL_RECORDER`` whose ``.active`` is False, and every engine guards its
 estimate-vector device copies and per-round clock reads behind that flag.
@@ -37,6 +42,7 @@ the online invariant monitor (``obs/health.py``) as rounds complete.
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 import time
 from collections import deque
@@ -116,6 +122,9 @@ class _NullRecorder:
     def record_fused_rounds(self, *a, **kw) -> None:
         pass
 
+    def note_event(self, *a, **kw) -> None:
+        pass
+
     def end_run(self, *a, **kw) -> None:
         pass
 
@@ -138,6 +147,11 @@ class FlightRecorder:
         self._runs = 0
         self._run: dict | None = None      # open-run state
         self._context: dict = {}           # merged into the next start_run
+        self._watch: np.ndarray = np.zeros(0, np.int64)
+        self._timelines: dict[int, list] = {}
+        # out-of-band events (snapshot flips, checkpoint saves, ...) — a
+        # separate ring so they never evict convergence rounds
+        self._events: deque[dict] = deque(maxlen=self.capacity)
         self._observers: list = []
         self.last_run_rounds = 0           # rounds of the last FINISHED run
         self.rounds_recorded = 0           # total rounds ever recorded
@@ -193,9 +207,9 @@ class FlightRecorder:
         """Record one accounting round of the open run.
 
         ``est``/``prev_est`` are OPTIONAL host int vectors: when given, the
-        estimate-decrease histogram, rise count and estimate sum are
-        computed from them (numpy, O(n) — the callers only copy device
-        tensors when ``recorder().active``).
+        estimate-decrease histogram, rise count, estimate sum and watchlist
+        samples are computed from them (numpy, O(n) — the callers only copy
+        device tensors when ``recorder().active``).
         """
         with self._lock:
             if self._run is None:
@@ -213,6 +227,7 @@ class FlightRecorder:
                     prev = np.asarray(prev_est)
                     est_rises = int((est > prev).sum())
                     hist = drop_histogram(prev, est)
+                self._sample_watch(run, rnd, est)
             rec = FlightRecord(
                 seq=self._seq, run=run["id"], engine=run["engine"],
                 mode=run["mode"], batch=run["batch"], round=rnd,
@@ -257,6 +272,25 @@ class FlightRecorder:
                     device_s=per_round, compiles=compiles if i == 0 else 0,
                     dispatch=dispatch or None)
 
+    def note_event(self, kind: str, **attrs) -> None:
+        """Record an out-of-band serving event (a snapshot flip, a checkpoint
+        save) beside the convergence rounds.
+
+        Events live in their own bounded ring, are exported under
+        ``"events"`` in ``to_json()``, and stream to observers as
+        ``{"kind": "event", ...}``, so ``/debug/flight`` shows buffer flips
+        in sequence with the re-convergence they raced against.
+        """
+        with self._lock:
+            ev = {"kind": str(kind), "t": time.perf_counter(), **attrs}
+            self._events.append(ev)
+            self._notify({"kind": "event", "event": ev})
+
+    def events(self, last: int | None = None) -> list[dict]:
+        with self._lock:
+            evs = list(self._events)
+        return evs if last is None else evs[-int(last):]
+
     def end_run(self, converged: bool = True, **attrs) -> None:
         with self._lock:
             self._finish_run(converged=bool(converged), **attrs)
@@ -270,6 +304,45 @@ class FlightRecorder:
                       "engine": run["engine"], "mode": run["mode"],
                       "batch": run["batch"], "rounds": run["rounds"],
                       "converged": converged, **attrs})
+
+    # -------------------------------------------------------------- #
+    # watchlist (per-vertex trajectories)
+    # -------------------------------------------------------------- #
+    def watch(self, ids) -> None:
+        """Select vertex ids whose estimate trajectory is captured at every
+        round where a host estimate vector is available."""
+        with self._lock:
+            self._watch = np.unique(np.asarray(ids, np.int64).reshape(-1))
+            for v in self._watch:
+                self._timelines.setdefault(int(v), [])
+
+    @property
+    def watchlist(self) -> np.ndarray:
+        return self._watch
+
+    def _sample_watch(self, run: dict, rnd: int, est: np.ndarray) -> None:
+        w = self._watch
+        if not w.size:
+            return
+        sel = w[w < est.shape[0]]
+        vals = est[sel]
+        for v, e in zip(sel.tolist(), vals.tolist()):
+            tl = self._timelines[int(v)]
+            # an entry per (run, round) where the estimate was observable,
+            # flagged when it moved (a message-timeline)
+            changed = bool(tl) and tl[-1]["est"] != int(e)
+            tl.append({"run": run["id"], "batch": run["batch"],
+                       "round": rnd, "est": int(e), "changed": changed})
+            if len(tl) > 4 * self.capacity:
+                del tl[: 2 * self.capacity]
+
+    def timelines(self) -> dict[int, list]:
+        """Per-watched-vertex estimate/message timeline (replayable)."""
+        with self._lock:
+            return {v: list(tl) for v, tl in self._timelines.items()}
+
+    def trajectory(self, vid: int) -> list:
+        return self.timelines().get(int(vid), [])
 
     # -------------------------------------------------------------- #
     # observers (obs/health.py subscribes here)
@@ -309,7 +382,14 @@ class FlightRecorder:
                 "rounds_recorded": self.rounds_recorded,
                 "dropped": max(self.rounds_recorded - len(self._ring), 0),
                 "records": [r.to_json() for r in self.records(last)],
+                "events": self.events(last),
+                "watch": self.timelines(),
             }
+
+    def dump(self, path: str, last: int | None = None) -> str:
+        with open(path, "w") as f:
+            json.dump(self.to_json(last), f)
+        return path
 
     def reset(self) -> None:
         with self._lock:
@@ -318,6 +398,8 @@ class FlightRecorder:
             self._runs = 0
             self._run = None
             self._context = {}
+            self._timelines = {v: [] for v in self._timelines}
+            self._events.clear()
             self.last_run_rounds = 0
             self.rounds_recorded = 0
 
@@ -339,8 +421,8 @@ def recorder():
 
 def get_recorder() -> FlightRecorder:
     """The default recorder itself (regardless of the enabled flag) —
-    export/inspection paths (``--flight`` dumps, the invariant monitor's
-    ``install``)."""
+    export/inspection paths (the HTTP endpoint, ``--flight`` dumps, the
+    invariant monitor's ``install``)."""
     return _DEFAULT
 
 
@@ -364,9 +446,17 @@ def reset() -> None:
     _DEFAULT.reset()
 
 
+def watch(ids) -> None:
+    _DEFAULT.watch(ids)
+
+
 def records(last: int | None = None) -> list[FlightRecord]:
     return _DEFAULT.records(last)
 
 
 def to_json(last: int | None = None) -> dict:
     return _DEFAULT.to_json(last)
+
+
+def dump(path: str, last: int | None = None) -> str:
+    return _DEFAULT.dump(path, last)

@@ -18,9 +18,9 @@ the fact:
 Anomalies are emitted as structured events into the tracer
 (``trace.record("health.anomaly", ...)``), counted per-kind in the metrics
 registry (``obs_health_anomalies_total{kind}``), and collapsed into a
-single health gauge (``obs_health_status``: 1 ok / 0 anomalous), which the
-reference's ``/healthz`` endpoint serves (the port's is ROADMAP.md Queue A
-item 7).
+single health gauge (``obs_health_status``: 1 ok / 0 anomalous); the
+verdict is what ``/healthz`` serves (``obs/http.py``: 200, or 503 after an
+anomaly).
 
 The monitor subscribes to a ``FlightRecorder`` via its observer hook, so
 it costs nothing unless flight recording is enabled; ``install()`` wires

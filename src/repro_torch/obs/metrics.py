@@ -18,9 +18,9 @@ many requests a server answers, while quantiles stay unbiased estimates
 of the full stream. Exact count / sum / min / max are tracked alongside
 the reservoir.
 
-The reference's ``KCoreServer`` owns a private registry (two servers in one
-process must not merge their latency distributions; the port's server is
-ROADMAP.md Queue A item 7); engine/runtime-level totals go to
+``KCoreServer`` (``streaming/server.py``) owns a private registry (two
+servers in one process must not merge their latency distributions);
+engine/runtime-level totals go to
 the process-wide default registry (``repro_torch.obs.metrics.counter(...)``),
 dumped by the ``--metrics`` CLI flags.
 """

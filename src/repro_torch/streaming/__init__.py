@@ -6,16 +6,21 @@ edge churn and warm-started incremental re-convergence.
   * ``engine`` — warm-start the locality iteration from the previous
     fixpoint and re-converge only the affected frontier.
 
-  * ``server`` — so far the as-of store (``CoreCheckpointRing``) that the
-    temporal layer re-exports; the query servers themselves (``KCoreServer``,
-    ``concurrent``) come with ROADMAP.md Queue A item 7.
+  * ``server`` — ``KCoreServer``, the query server over the engine (or a
+    sliding window): batched core-number queries, updates, as-of queries
+    from ``CoreCheckpointRing``, per-server metrics and warm restarts;
+  * ``concurrent`` — ``ConcurrentKCoreServer``, its snapshot-isolated front
+    end: reads on a worker pool answered from the last published fixpoint
+    while the single writer re-converges, and ``drain`` to a checkpoint.
 """
 
 from repro_torch.streaming.delta import (ChurnDelta, DeltaResult, EdgeBatch, PatchableCSR,
                                          apply_batch, canonical_edges, random_churn_batch)
 from repro_torch.streaming.engine import (BatchResult, StreamingConfig, StreamingKCoreEngine,
                                           warm_start_seed)
-from repro_torch.streaming.server import AsofView, CoreCheckpointRing
+from repro_torch.streaming.concurrent import ConcurrentKCoreServer, CoreSnapshot, SnapshotBox
+from repro_torch.streaming.server import (AsofView, CoreCheckpointRing, KCoreServer, Request,
+                                          Response)
 
 __all__ = [
     "EdgeBatch",
@@ -31,4 +36,10 @@ __all__ = [
     "warm_start_seed",
     "CoreCheckpointRing",
     "AsofView",
+    "KCoreServer",
+    "Request",
+    "Response",
+    "ConcurrentKCoreServer",
+    "CoreSnapshot",
+    "SnapshotBox",
 ]

@@ -74,6 +74,10 @@ from repro_torch.platform import resolve_device
 from repro_torch.streaming.delta import ChurnDelta, DeltaResult, EdgeBatch, PatchableCSR
 
 FRONTIER_MODES = ("dense", "compact", "sharded", "fused", "auto")
+# the reference engine's padded live-arc and per-shard arc floors: the port
+# pads and shards nothing, so it only carries them through state_dict, whose
+# leaves are then the reference's and a checkpoint crosses between packages
+REF_FLOORS = (("arc_pad_hwm", 1), ("shard_A_floor", 0))
 ROADMAP_SHARDED = "ROADMAP.md Queue A item 10 (sharded and multi-process paths)"
 
 
@@ -324,6 +328,7 @@ class StreamingKCoreEngine:
         self._graph_cache: Graph | None = g
         # the binary-search depth only grows over a stream (see apply_batch)
         self._n_iters_hwm = 0
+        self._ref_floors = dict(REF_FLOORS)
         init = kcore_decompose(g, kcore_config, device=self.device)
         self.core = init.core.astype(np.int32)
         self.init_result = init
@@ -353,13 +358,16 @@ class StreamingKCoreEngine:
     # ------------------------------------------------------------------ #
     def state_dict(self) -> dict:
         """The engine's exact state as numpy arrays: cores, the full
-        PatchableCSR slot state and the binary-search depth's high-water
-        mark. ``from_state_dict`` continues the stream from it."""
+        PatchableCSR slot state, the binary-search depth's high-water mark,
+        and the reference's two carried floors (``REF_FLOORS``): the
+        reference engine's keys, so either package's engine restores it.
+        ``from_state_dict`` continues the stream from it."""
         return {
             "core": np.asarray(self.core, np.int32),
             "batches_applied": np.asarray(self.batches_applied, np.int64),
             "csr": self._csr.state_dict(),
             "n_iters_hwm": np.asarray(self._n_iters_hwm, np.int64),
+            **{k: np.asarray(v, np.int64) for k, v in self._ref_floors.items()},
         }
 
     @classmethod
@@ -380,6 +388,7 @@ class StreamingKCoreEngine:
             compact_dead_frac=config.compact_dead_frac)
         eng._graph_cache = None
         eng._n_iters_hwm = int(np.asarray(state.get("n_iters_hwm", 0)))
+        eng._ref_floors = {k: int(np.asarray(state.get(k, d))) for k, d in REF_FLOORS}
         eng.core = np.asarray(state["core"], np.int32)
         eng.init_result = None
         eng.batches_applied = int(np.asarray(state["batches_applied"]))

@@ -229,3 +229,136 @@ def test_serve_cli_sends_din_to_its_own_launcher():
     out = _run("repro_torch.launch.serve", "--arch", "din", "--device", "cpu")
     assert out.returncode == 2
     assert "repro_torch.launch.din_serve" in out.stderr
+
+
+# ------------------------------ kcore_serve ------------------------------- #
+
+# columns and header fields that are walls (or name the device)
+SERVE_WALLS = ("patch_s", "query_s")
+STATS_WALLS = ("query_wall_s", "update_wall_s", "snapshot_age_s", "latency")
+SERVE_ARGS = ("--n", "500", "--batches", "3", "--queries", "2000", "--verify")
+
+
+def _serve_table(out):
+    """The run's lines with the walls taken out: header fields, CSV rows as
+    dicts, the ``# asof_boundaries=`` line, and ``# final_stats=`` with its
+    counters (and each op's request count) but no wall."""
+    import ast
+
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    cols = next(line for line in lines if line.startswith("tick,")).split(",")
+    table = {"columns": cols, "rows": [], "header": None, "asof": None, "stats": None}
+    for line in lines:
+        if line.startswith(("# graph=", "# events=")):
+            table["header"] = [f for f in line.split()
+                               if not f.startswith(("init_wall_s=", "device="))]
+        elif line[:1].isdigit():
+            row = dict(zip(cols, line.split(",")))
+            assert row.get("verified") == "True"
+            table["rows"].append({k: v for k, v in row.items() if k not in SERVE_WALLS})
+        elif line.startswith("# asof_boundaries="):
+            table["asof"] = line
+        elif line.startswith("# final_stats="):
+            stats = ast.literal_eval(line.removeprefix("# final_stats="))
+            counts = {op: s["count"] for op, s in stats["latency"].items()}
+            table["stats"] = {**{k: v for k, v in stats.items() if k not in STATS_WALLS},
+                              "counts": counts}
+    return table
+
+
+@pytest.mark.parametrize("concurrent", [(), ("--concurrent", "2")], ids=["serial", "concurrent"])
+@pytest.mark.parametrize("source", [("--graph", "ba"), ("--events", "ba")], ids=["static", "events"])
+def test_serve_cli_rows_equal_the_jax_cli(source, concurrent):
+    argv = (*source, *SERVE_ARGS, *concurrent)
+    port = _run("repro_torch.launch.kcore_serve", *argv, "--device", "cpu")
+    ref = _run("repro.launch.kcore_serve", *argv)
+    got, want = _serve_table(port), _serve_table(ref)
+    assert got == want
+    assert len(got["rows"]) == 3 and (got["asof"] is not None) == (source[0] == "--events")
+    assert any(line.startswith("# ") and line.endswith(" device=cpu")
+               for line in port.stdout.splitlines())
+
+
+@pytest.mark.parametrize("source", [("--graph", "ba", "--concurrent", "2"), ("--events", "ba")],
+                         ids=["static-concurrent", "events"])
+def test_serve_cli_resumes_a_checkpoint_in_lockstep(tmp_path, source):
+    """Stopped after 2 ticks, resumed to 4 from its checkpoint: the rows of an
+    uninterrupted 4-tick run of the reference CLI."""
+    base = (*source, "--n", "500", "--queries", "2000", "--verify")
+    ck = str(tmp_path / "ck")
+    first = _run("repro_torch.launch.kcore_serve", *base, "--batches", "2", "--device", "cpu",
+                 "--checkpoint-dir", ck)
+    assert "# checkpoint: step 2 -> " in first.stdout, first.stderr
+    rest = _run("repro_torch.launch.kcore_serve", *base, "--batches", "4", "--device", "cpu",
+                "--checkpoint-dir", ck)
+    assert "# resumed: step 2 from " in rest.stdout
+    want = _serve_table(_run("repro.launch.kcore_serve", *base, "--batches", "4"))
+    got = _serve_table(first)["rows"] + _serve_table(rest)["rows"]
+    assert got == want["rows"] and [r["tick"] for r in got] == ["0", "1", "2", "3"]
+
+
+def test_serve_cli_drains_on_sigterm_and_serves_http_while_it_runs(tmp_path):
+    """SIGTERM ends the loop after its current tick, saves a checkpoint and
+    exits 0; while it ran, /query/* and /healthz answered. A resumed run
+    continues with the uninterrupted run's rows."""
+    import signal
+    import urllib.request
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT / "src"))
+    ck = str(tmp_path / "ck")
+    base = ("--graph", "ba", "--n", "500", "--queries", "500", "--device", "cpu", "--verify")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.kcore_serve", *base, "--batches", "100000",
+         "--concurrent", "2", "--listen", "0", "--checkpoint-dir", ck],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    try:
+        url, lines = None, []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("# obs: listening on "):
+                url = line.split()[4]
+            if line[:1].isdigit():
+                break
+        assert url is not None, "".join(lines)
+        with urllib.request.urlopen(url + "/query/max_k", timeout=5) as resp:
+            assert resp.status == 200 and json.loads(resp.read())["ok"] is True
+        with urllib.request.urlopen(url + "/healthz", timeout=5) as resp:
+            assert resp.status == 200
+        proc.send_signal(signal.SIGTERM)
+        rest, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    text = "".join(lines) + rest
+    assert "# signal 15: draining after current tick" in text
+    ticks = sum(1 for line in text.splitlines() if line[:1].isdigit())
+    assert f"# checkpoint: step {ticks} -> " in text
+    resumed = _run("repro_torch.launch.kcore_serve", *base, "--batches", str(ticks + 1),
+                   "--checkpoint-dir", ck)
+    assert f"# resumed: step {ticks} from " in resumed.stdout
+    want = _serve_table(_run("repro_torch.launch.kcore_serve", *base, "--batches",
+                             str(ticks + 1)))["rows"][-1]
+    assert _serve_table(resumed)["rows"] == [want]
+
+
+@pytest.mark.parametrize("argv", [("--mesh", "2"), ("--frontier", "sharded")])
+def test_serve_cli_refuses_what_is_not_ported(argv):
+    out = _run("repro_torch.launch.kcore_serve", "--graph", "ba", "--n", "50", "--device", "cpu",
+               *argv)
+    assert out.returncode == 2
+    assert "ROADMAP.md Queue A item 10" in out.stderr
+
+
+def test_serve_cli_without_a_card_fails_unless_cpu_is_asked():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.kcore_serve", "--graph", "ba", "--n", "50",
+         "--batches", "1"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+             "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "tick," not in out.stdout

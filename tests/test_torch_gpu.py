@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, the
 decomposition through the k-core kernels, the streaming engine and the
 sliding window on ``segment_sum`` against the CPU (and a window checkpoint
-restored onto the card), serving through the flash kernel
+restored onto the card), the query server and its concurrent front end on
+the card against the CPU and their snapshots, serving through the flash kernel
 against the same weights served on the CPU, and DIN through the
 embedding-bag kernel against the CPU and a float64 evaluation.
 
@@ -230,6 +231,75 @@ def test_window_checkpoint_restores_onto_the_card(cuda, tmp_path):
     out, _ = restore_checkpoint(tmp_path, like)
     assert out["est"].device.type == "cuda" and out["est"].tolist() == [0, 1, 2, 3]
     assert isinstance(out["n"], np.ndarray) and float(out["n"]) == 1.0
+
+
+def test_served_graph_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.streaming import KCoreServer, Request, StreamingConfig, random_churn_batch
+
+    g = generators.barabasi_albert(3000, 4, seed=0)
+    hk.launches = sk.launches = 0
+    card = KCoreServer(g, StreamingConfig(frontier="fused"))
+    assert card.engine.device.type == "cuda" and hk.launches > 0
+    cpu = KCoreServer(g, StreamingConfig(frontier="fused"), device="cpu")
+    rng = np.random.default_rng(2)
+    for _ in range(3):
+        batch = random_churn_batch(cpu.engine.graph, 30, 30, rng)
+        ids = rng.integers(0, g.n, 64)
+        reqs = [Request(op="update", batch=batch), Request(op="core", vertices=ids),
+                Request(op="in_kcore", vertices=ids, k=3), Request(op="members", k=4),
+                Request(op="max_k"), Request(op="core", vertices=[g.n])]
+        sk.launches = 0
+        got, want = card.serve(reqs), cpu.serve(reqs)
+        assert sk.launches > 0
+        assert [(r.ok, r.error) for r in got] == [(r.ok, r.error) for r in want]
+        assert got[0].payload.total_messages == want[0].payload.total_messages
+        for a, b in zip(got[1:5], want[1:5]):
+            np.testing.assert_array_equal(a.payload, b.payload)
+        np.testing.assert_array_equal(card.core, bz_core_numbers(cpu.engine.graph))
+    keep = ("queries_served", "clients_answered", "errors_returned", "updates_applied",
+            "update_messages", "update_rounds", "max_k", "m")
+    assert {k: card.stats()[k] for k in keep} == {k: cpu.stats()[k] for k in keep}
+
+
+def test_concurrent_reads_during_card_updates_match_their_versions(cuda):
+    import threading
+
+    from repro_torch.streaming import (ConcurrentKCoreServer, KCoreServer, Request,
+                                       random_churn_batch)
+
+    front = ConcurrentKCoreServer(KCoreServer(generators.barabasi_albert(5000, 4, seed=1)))
+    registry = {front.snapshot.version: front.snapshot}
+    stop, outs = threading.Event(), [[] for _ in range(4)]
+
+    def reader(seed, out):
+        r = np.random.default_rng(seed)
+        while True:
+            req = Request(op="core", vertices=r.integers(0, 5000, 32))
+            out.append((req, front.read(req)))
+            if stop.wait(1e-3):      # spinning readers would slow the writer many-fold
+                return
+
+    threads = [threading.Thread(target=reader, args=(i, outs[i]), daemon=True) for i in range(4)]
+    for th in threads:
+        th.start()
+    rng = np.random.default_rng(3)
+    try:
+        for _ in range(4):
+            sk.launches = 0
+            front.update(random_churn_batch(front.server.engine.graph, 100, 100, rng))
+            assert sk.launches > 0
+            registry[front.snapshot.version] = front.snapshot
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    pairs = [p for out in outs for p in out]
+    assert pairs and all(resp.ok for _, resp in pairs)
+    for req, resp in pairs:
+        np.testing.assert_array_equal(resp.payload, registry[resp.version].core[req.vertices])
+    np.testing.assert_array_equal(front.snapshot.core,
+                                  bz_core_numbers(front.server.engine.graph))
 
 
 # tolerances of tests/test_kernels.py:160 (reasons in tests/test_torch_flash_attention.py)
