@@ -11,7 +11,9 @@ streaming engine (``repro_torch.streaming``: churn batches re-converged on
 sliding over a timestamped edge stream, each advance one streaming batch,
 checkpointed through ``repro_torch.checkpoint``), k-core serving (``repro_torch.streaming``'s
 ``KCoreServer`` behind ``ConcurrentKCoreServer`` and ``obs.http``, and ``launch.kcore_serve``:
-reads of a published snapshot while the engine re-converges on the kernels), LM serving
+reads of a published snapshot while the engine re-converges on the kernels), the
+out-of-core decomposition (``repro_torch.core.outofcore``: arc blocks cycled from a
+disk store through the card, each block's superstep on ``segment_sum``), LM serving
 (``launch.serve``, prefill attention
 on the flash-attention kernel) and DIN (``launch.din_serve``, the context bag
 on the embedding-bag kernel); each kernel is hand-written CUDA under
@@ -73,7 +75,7 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
 12. Full size, temporal: SPR's temporal log (``temporal_snap_analogue("SPR",
    1.0, remove_frac=0.15)``, made from phase 6's graph), a count window of
    3,000,000 events sliding 300,000 at a time in ``fused`` mode: filled in
-   one advance of 10 strides, then 3 sliding advances, each boundary checked
+   one advance of 10 strides, then 2 sliding advances, each boundary checked
    by ``check_step`` (edge set, engine graph, cores against BZ); per step the
    batch, rounds and messages against a fused from-scratch run, the phase
    walls, the ``window.diff`` wall and the step wall, CSR health, launches
@@ -143,14 +145,14 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    acceptance check: read p99 below max(mean update wall, 0.05 s).
 18. Full size, served: SPR (phase 6's graph and BZ cores) behind
    ``KCoreServer(..., StreamingConfig(frontier="fused"))``,
-   ``ConcurrentKCoreServer`` (4 read workers) and the HTTP endpoint; 2 ticks
-   of churn 0.002 (``kcore_serve._tick_rng``), each applied by a writer
+   ``ConcurrentKCoreServer`` (4 read workers) and the HTTP endpoint; a tick
+   of churn 0.002 (``kcore_serve._tick_rng``), applied by a writer
    thread while 4 readers hammer the snapshot (no ``core_asof``: a static
    server has no boundaries) and the main thread polls ``/query/core``,
-   ``/query/stats``, ``/metrics`` and ``/healthz``; after each tick the
+   ``/query/stats``, ``/metrics`` and ``/healthz``; after the tick the
    snapshot equals BZ, every read and HTTP read equals its version's
    snapshot, and reads completed during re-convergence. Then a drain to a
-   checkpoint, a restore into a fresh server, and tick 2 on both: equal in
+   checkpoint, a restore into a fresh server, and tick 1 on both: equal in
    cores and every ``BatchResult`` accounting field; ``segment_sum``
    bit-exact on the served live arcs. Prints the init wall, each tick's
    phase walls, rounds and messages against a fused scratch run, the flip
@@ -159,7 +161,22 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
 19. ``python -m repro_torch.launch.kcore_serve --graph EEN --scale 0.05
    --batches 2 --queries 10000 --frontier fused --concurrent 2 --listen 0
    --verify`` in a subprocess on the card: exit 0, every tick verified.
-20. The ``kernels`` JSON line: each kernel's launches in the main path's
+20. Full size, out of core (``repro_torch.core.outofcore``): the scale
+   benchmark's headline configuration (``benchmarks/scale_decomposition.py``:
+   the LJ1 analogue at a 10^6-vertex target under a 64 MiB block-cache
+   budget) and SPR (phase 6's graph and BZ cores) under 256 MiB, each
+   through ``outofcore_decompose`` on the card: cores equal BZ, cores, rounds
+   and every per-round bill equal an in-memory fused run (phase 6's for
+   SPR), at least one eviction, ``device_block_bytes`` below the arc arrays'
+   bytes and the card's measured peak (``max_memory_allocated`` less the
+   allocation at entry) below them too, ``segment_sum`` launched; per graph
+   the geometry, the I/O bill, rounds, messages and walls, a split of round 1
+   into host materialisation, host-to-device copies and the superstep, and
+   ``segment_sum`` bit-exact on the widest block's shipped slice. Then
+   ``python -m repro_torch.launch.kcore_run --graph FC --scale 0.05
+   --out-of-core --mem-budget 4194304 --json`` in a subprocess on the card:
+   exit 0, ``correct_vs_BZ`` and an ``out_of_core`` block.
+21. The ``kernels`` JSON line: each kernel's launches in the main path's
    runs, its largest error against its plain version, its time a call and
    on the device (flash attention's under ``timed``), the plain version's,
    the library call's and the bound.
@@ -1022,8 +1039,9 @@ def streaming_full(torch, dev, g, core_bz, launches) -> int:
 
 # the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 3,000,000
 # events (about 10 % of the stream) sliding 300,000 at a time (1 % of SPR's edges), filled in one
-# advance of 10 strides, then 3 sliding advances; a checkpoint after the first of them
-TEMPORAL = {"remove_frac": 0.15, "window": 3_000_000, "stride": 300_000, "slides": 3,
+# advance of 10 strides, then 2 sliding advances (so the whole smoke keeps inside its 1,200 s);
+# a checkpoint after the first of them
+TEMPORAL = {"remove_frac": 0.15, "window": 3_000_000, "stride": 300_000, "slides": 2,
             "frontier": "fused"}
 # BatchResult fields that are walls (or builds) rather than accounting
 WALLS = ("patch_s", "seed_s", "converge_s", "reconstruct_s", "recompiles", "compile_s", "stage_s")
@@ -1222,7 +1240,6 @@ def temporal_full(torch, dev, g, spr_scale, launches) -> int:
           "warm restart: the next advance equals the uninterrupted window's in cores, per-round "
           "bills and every BatchResult accounting field")
     del warm, state, a, b
-    step(weng, 1, "slide 3")
     print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
     del weng, log
     return err
@@ -1231,7 +1248,8 @@ def temporal_full(torch, dev, g, spr_scale, launches) -> int:
 # the serving phases: the gate's readers (benchmarks/serving_mixed.py) and its acceptance floor;
 # the served SPR's churn a tick (phase 10's first batch) and the CLI run on the card
 P99_WALL_FLOOR_S = 0.05
-SERVED = {"churn": 0.002, "ticks": 2, "readers": 4, "ids_per_read": 32, "seed": 0}
+# one tick under readers before the drain, so the whole smoke keeps inside its 1,200 s
+SERVED = {"churn": 0.002, "ticks": 1, "readers": 4, "ids_per_read": 32, "seed": 0}
 SERVE_CLI = ("--graph", "EEN", "--scale", "0.05", "--batches", "2", "--queries", "10000",
              "--frontier", "fused", "--concurrent", "2", "--listen", "0", "--verify")
 
@@ -1656,6 +1674,199 @@ def serve_cli(dev) -> None:
           f"one verified ({wall:.1f} s){'' if out.returncode == 0 else ': ' + out.stderr[-2000:]}")
 
 
+# the out-of-core phase: the scale benchmark's headline configuration
+# (benchmarks/scale_decomposition.py:55-60: LJ1 at a 10^6-vertex target under a 64 MiB
+# budget), SPR at scale 1.0 under 256 MiB (its 64 MiB plan pads 1,024 blocks to a 3.34M-slot
+# A), and the CLI on the card
+OOC_LJ1 = {"abbrev": "LJ1", "vertices": 1_000_000, "mem_budget": 64 << 20}
+OOC_SPR_BUDGET = 256 << 20
+OOC_CLI = ("--graph", "FC", "--scale", "0.05", "--out-of-core", "--mem-budget", "4194304",
+           "--json")
+
+
+def ooc_round_split(torch, dev, store, deg, mem_budget):
+    """Round 1 of an out-of-core run once more, block by block, the card
+    synchronised between the parts: host materialisation (``BlockCache.get``),
+    the host-to-device copies, the superstep with its receivers on the card.
+    Returns the three walls summed over the blocks, and the widest block's
+    first-probe hit counts with its row offsets."""
+    import numpy as np
+
+    from repro_torch.core import outofcore as ooc
+    from repro_torch.core.kcore import _bs_iters
+    from repro_torch.graph.blockstore import BlockCache
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cache = BlockCache(store, budget_bytes=mem_budget)
+    deg_pad = np.zeros(store.n_pad, np.int32)
+    deg_pad[:store.n] = deg
+    est = torch.tensor(deg_pad, device=dev)
+    active = est > 0
+    recv = torch.zeros(store.n_pad + 1, dtype=torch.bool, device=dev)
+    n_iters = _bs_iters(int(deg_pad.max()))
+    live = active.view(store.n_blocks, store.V).any(1).cpu().numpy()
+    widest = int(np.argmax(store.arcs_per_block))
+    walls, held = {"get": 0.0, "copy": 0.0, "superstep": 0.0}, None
+    sync()
+    for b in np.flatnonzero(live):
+        lo = int(b) * store.V
+        t0 = time.perf_counter()
+        blk = cache.get(int(b))
+        t1 = time.perf_counter()
+        src_e, dst_e, mask_e = ooc.ship_block(blk, ooc._bucket(int(store.arcs_per_block[b]),
+                                                               store.A), dev)
+        sync()
+        t2 = time.perf_counter()
+        row_off = ooc.block_row_offsets(src_e, store.V)
+        _new, ch_u = ooc.block_superstep(est, active, lo, store.V, src_e, dst_e, mask_e, row_off,
+                                         n_iters)
+        ooc.mark_receivers(recv, ch_u, src_e, dst_e, mask_e)
+        sync()
+        t3 = time.perf_counter()
+        walls["get"] += t1 - t0
+        walls["copy"] += t2 - t1
+        walls["superstep"] += t3 - t2
+        if b == widest:
+            halo = torch.where(mask_e, est.index_select(0, dst_e), 0)
+            held = (f"the widest block's shipped slice (block {b}, a_eff {src_e.numel()})",
+                    first_probe_hits(torch, est[lo:lo + store.V], halo, src_e), row_off)
+    return walls, int(live.sum()), held
+
+
+def ooc_run(torch, dev, label, g, core_bz, inmem, mem_budget, launches) -> int:
+    """One full-size out-of-core run on the card: cores against BZ, rounds and
+    bills against the in-memory fused run ``inmem``, the I/O bill, the card's
+    measured peak against the arc arrays' bytes, then a round split and
+    ``segment_sum`` held on the widest block's slice. Returns its error."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.outofcore import outofcore_decompose
+    from repro_torch.graph.blockstore import BlockStore
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+
+    on_card = dev.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="ooc_", dir=ROOT / "build")
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        hk.launches = sk.launches = 0
+        t0 = time.perf_counter()
+        res = outofcore_decompose(g, mem_budget=mem_budget, store_dir=tmp, keep_store=True,
+                                  device=dev)
+        wall = time.perf_counter() - t0
+        launches["segment_sum"] += sk.launches
+        launches["kcore_hindex"] += hk.launches
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        st = res.block_stats
+        conv = res.phase_s["converge"]
+        print(f"  {label}: n={g.n} m={g.m} arcs={g.num_arcs} max_deg={g.max_deg}, budget "
+              f"{mem_budget}: n_blocks {st.n_blocks}, V {st.V}, A {st.A}, device_block_bytes "
+              f"{st.device_block_bytes}, total_arc_bytes {st.total_arc_bytes}, device_frac "
+              f"{st.device_block_bytes / st.total_arc_bytes:.4f}, measured device peak {peak} "
+              f"({peak / st.total_arc_bytes:.4f} of the arc bytes), imbalance {st.imbalance:.3f}")
+        print(f"    loads {st.blocks_loaded}, hits {st.cache_hits}, skips {st.blocks_skipped} "
+              f"(skip rate {st.skip_rate:.4f}), block rounds {st.block_rounds}, evictions "
+              f"{st.evictions}, cache_peak_bytes {st.cache_peak_bytes}, peak_rss_bytes "
+              f"{st.peak_rss_bytes}; rounds {res.rounds}, messages {res.stats.total_messages}, "
+              f"ms_per_round {st.ms_per_round:.3f}, converge {conv:.3f} s, wall {wall:.3f} s "
+              f"(store written and set up in {wall - conv:.3f} s); launches segment_sum "
+              f"{sk.launches}, kcore_hindex {hk.launches}")
+        print(f"    in-memory fused run: {inmem.rounds} rounds, {inmem.stats.total_messages} "
+              f"messages, phase_s {({k: round(v, 4) for k, v in inmem.phase_s.items()})}")
+        check(np.array_equal(res.core, core_bz) and res.converged,
+              f"{label} out of core: cores equal BZ")
+        check(np.array_equal(res.core, inmem.core) and same_bills(res, inmem),
+              f"{label} out of core: cores, rounds and per-round bills equal the in-memory fused "
+              f"run's")
+        check(st.evictions >= 1 and st.device_block_bytes < st.total_arc_bytes,
+              f"{label} out of core: {st.evictions} evictions, device_block_bytes "
+              f"{st.device_block_bytes} < total_arc_bytes {st.total_arc_bytes}")
+        if on_card:
+            check(0 < peak < st.total_arc_bytes,
+                  f"{label} out of core: the card's measured peak {peak} < total_arc_bytes "
+                  f"{st.total_arc_bytes}")
+            check(sk.launches > 0 and res.dispatch == "kernel",
+                  f"{label} out of core launched segment_sum")
+        (store_dir,) = Path(tmp).iterdir()
+        store = BlockStore.open(store_dir / "store")
+        walls, hit, held = ooc_round_split(torch, dev, store, g.deg, mem_budget)
+        total = sum(walls.values())
+        print(f"    round 1 again, {hit} blocks, synchronised between the parts: "
+              + ", ".join(f"{k} {v:.3f} s ({v / total:.1%})" for k, v in walls.items())
+              + f"; {total * 1e3 / hit:.3f} ms a block")
+        return segsum_held(torch, [held], f"out of core, {label}") if held else 0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def out_of_core_full(torch, dev, g_spr, core_spr, spr_fused, spr_scale, launches) -> int:
+    """Phase 20: LJ1 at the scale benchmark's headline configuration and SPR
+    out of core on the card, then ``kcore_run --out-of-core`` in a subprocess.
+    Returns the largest segment_sum error."""
+    import os
+    import subprocess
+
+    from repro_torch.core.bz import bz_core_numbers
+    from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.graph import generators
+    from repro_torch.kernels.kcore_hindex import ops as hk
+    from repro_torch.kernels.segment_sum import ops as sk
+
+    t_phase = time.perf_counter()
+    small = dev.type != "cuda"     # the CPU rehearsal cuts sizes and budgets by spr_scale
+    cut = spr_scale if small else 1.0
+    entry = generators.SNAP_BY_ABBREV[OOC_LJ1["abbrev"]]
+    t0 = time.perf_counter()
+    g = generators.snap_analogue(OOC_LJ1["abbrev"], OOC_LJ1["vertices"] * cut / entry.n, seed=0)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    core_bz = bz_core_numbers(g)
+    t_bz = time.perf_counter() - t0
+    hk.launches = sk.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    fused = kcore_decompose(g, fused=True, device=dev)
+    peak = torch.cuda.max_memory_allocated() - base if dev.type == "cuda" else 0
+    launches["segment_sum"] += sk.launches
+    launches["kcore_hindex"] += hk.launches
+    print(f"  LJ1 analogue at scale {OOC_LJ1['vertices'] * cut / entry.n:.6f}: generated in "
+          f"{t_gen:.1f} s, BZ in {t_bz:.1f} s; in-memory fused run {fused.rounds} rounds, device "
+          f"peak {peak}, launches kcore_hindex {hk.launches}, segment_sum {sk.launches}")
+    check(fused.converged and (fused.core == core_bz).all(), "LJ1 in memory (fused): cores equal BZ")
+    err = ooc_run(torch, dev, "LJ1", g, core_bz, fused, int(OOC_LJ1["mem_budget"] * cut), launches)
+    del g, core_bz, fused
+    err = max(err, ooc_run(torch, dev, "SPR", g_spr, core_spr, spr_fused,
+                           int(OOC_SPR_BUDGET * cut), launches))
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    argv = [sys.executable, "-m", "repro_torch.launch.kcore_run", *OOC_CLI]
+    if small:
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    text = out.stdout
+    report = json.loads(text[text.index("{"):text.rindex("}") + 1]) if "{" in text else {}
+    block = report.get("out_of_core", {})
+    print(f"    kcore_run {' '.join(OOC_CLI)}: rounds {report.get('rounds')}, n_blocks "
+          f"{block.get('n_blocks')}, device {report.get('device')}, dispatch "
+          f"{report.get('dispatch')}, wall_s {report.get('wall_s')} ({wall:.1f} s with start-up)")
+    check(out.returncode == 0 and report.get("correct_vs_BZ") is True and bool(block)
+          and report.get("dispatch") == ("torch" if small else "kernel"),
+          f"kcore_run {' '.join(OOC_CLI)}: exit {out.returncode}, correct_vs_BZ, an out_of_core "
+          f"block{'' if out.returncode == 0 else ': ' + out.stderr[-2000:]}")
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return err
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -1948,7 +2159,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"{gather_ms:.3f} ms, kcore_hindex {stats['kcore_hindex']['ms']:.3f} ms, "
           f"segment_sum {stats['segment_sum']['ms']:.3f} ms")
 
-    jacobi = runs["host loop"]
+    jacobi, spr_fused = runs["host loop"], runs["fused"]    # spr_fused stays for phase 20
     del body, live, everyone, ext, tiles, deg_t, runs, fused, host, ell
     # ------------------------------------------------------------------ #
     phase(f"7. the other static modes on the Table-I set at scale {TABLE_I_SCALE}")
@@ -1978,7 +2189,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"and restarted warm")
     err = temporal_full(torch, dev, g, spr_scale, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
-    del jacobi, table1       # g and core_bz stay for phase 18
+    del jacobi, table1       # g and core_bz stay for phases 18 and 20
     if device == "cuda":
         torch.cuda.empty_cache()
     # ------------------------------------------------------------------ #
@@ -2008,18 +2219,25 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
 
     # ------------------------------------------------------------------ #
     phase(f"18. full size, served: SPR at scale {spr_scale} behind the concurrent front end and "
-          f"the HTTP endpoint, {SERVED['ticks']} ticks of churn {SERVED['churn']}, drained and "
+          f"the HTTP endpoint, {SERVED['ticks']} tick(s) of churn {SERVED['churn']}, drained and "
           f"restored")
     err = serving_full(torch, dev, g, core_bz, smi, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
-    del g, core_bz
 
     # ------------------------------------------------------------------ #
     phase("19. the kcore_serve CLI on the card")
     serve_cli(dev)
 
     # ------------------------------------------------------------------ #
-    phase("20. kernels")
+    phase(f"20. full size, out of core: LJ1 at a {OOC_LJ1['vertices']}-vertex target under "
+          f"{OOC_LJ1['mem_budget']} bytes, SPR at scale {spr_scale} under {OOC_SPR_BUDGET} bytes, "
+          f"and kcore_run --out-of-core")
+    err = out_of_core_full(torch, dev, g, core_bz, spr_fused, spr_scale, launches)
+    stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
+    del g, core_bz, spr_fused
+
+    # ------------------------------------------------------------------ #
+    phase("21. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]

@@ -26,6 +26,16 @@ def chain(n: int) -> Graph:
     return Graph.from_edges(e, n=n)
 
 
+def cycle(n: int) -> Graph:
+    e = np.stack([np.arange(n), (np.arange(n) + 1) % n], axis=1)
+    return Graph.from_edges(e, n=n)
+
+
+def complete(n: int) -> Graph:
+    iu = np.triu_indices(n, k=1)
+    return Graph.from_edges(np.stack(iu, axis=1), n=n)
+
+
 def star(n: int) -> Graph:
     e = np.stack([np.zeros(n - 1, np.int64), np.arange(1, n)], axis=1)
     return Graph.from_edges(e, n=n)

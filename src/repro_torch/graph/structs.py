@@ -89,6 +89,9 @@ class Graph:
     def avg_deg(self) -> float:
         return float(self.deg.mean()) if self.n else 0.0
 
+    def neighbors(self, u: int) -> np.ndarray:
+        return self.dst[self.offsets[u]:self.offsets[u + 1]]
+
 
 # ---------------------------------------------------------------------- #
 # Degree-bucketed ELL layout (the kcore_hindex kernel's input)

@@ -6,6 +6,8 @@
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --mode block_gs
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --backend ell --device cpu
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --metrics --flight f.json
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph LJ1 --scale 0.01 \
+        --out-of-core --mem-budget $((4 << 20))
 
 Prints the paper's measurement set: total messages, messages/active nodes
 per round, rounds to convergence, work bound, heartbeat-model overhead and
@@ -18,7 +20,11 @@ plain PyTorch versions run); with no card and no ``--device cpu`` it fails.
 ``--fused`` keeps the per-round bills on the device (core/runtime.py),
 bit-equal to the host loop (jacobi only). ``--mode block_gs`` sweeps 8
 vertex blocks in order within a round; ``--backend ell|ell_pallas`` names
-the ELL route, which every jacobi backend of the port runs. ``--metrics``
+the ELL route, which every jacobi backend of the port runs.
+``--out-of-core`` cycles arc blocks from a temporary on-disk store through
+the card one at a time (``core/outofcore.py``), the block count planned from
+``--mem-budget`` or forced by ``--blocks``; the report gains its
+``out_of_core`` block. ``--metrics``
 dumps the metrics registry (JSON or Prometheus text), ``--flight`` the
 per-round flight ring with the invariant monitor's health verdict.
 """
@@ -51,7 +57,29 @@ def parse_args(argv=None) -> argparse.Namespace:
         "cpu runs their plain PyTorch versions",
     )
     ap.add_argument("--mesh", type=int, default=0, metavar="N", help="not ported yet")
-    ap.add_argument("--out-of-core", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "--out-of-core",
+        action="store_true",
+        help="block-cycling decomposition on bounded device memory "
+        "(repro_torch.core.outofcore): arc blocks spill to disk and cycle "
+        "through an LRU cache; bills bit-equal to the in-memory modes",
+    )
+    ap.add_argument(
+        "--mem-budget",
+        type=int,
+        default=None,
+        metavar="BYTES",
+        help="out-of-core LRU block-cache budget in bytes (drives the "
+        "block-count plan; default: 8 blocks, unbounded cache)",
+    )
+    ap.add_argument(
+        "--blocks",
+        type=int,
+        default=None,
+        metavar="N",
+        help="force the out-of-core block count instead of planning it "
+        "from --mem-budget",
+    )
     ap.add_argument("--json", action="store_true")
     ap.add_argument(
         "--trace",
@@ -91,14 +119,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.metrics_out:
         args.metrics = True
-    # what this slice does not port, and the ROADMAP.md item that will
-    refused = [
-        (args.mesh, "--mesh", "ROADMAP.md Queue A item 10 (sharded and multi-process paths)"),
-        (args.out_of_core, "--out-of-core", "ROADMAP.md Queue A item 8 (out-of-core)"),
-    ]
-    for is_set, flag, item in refused:
-        if is_set:
-            ap.error(f"{flag} is not ported yet: {item}")
+    if args.out_of_core and (args.mesh or args.fused or args.mode != "jacobi"
+                             or args.backend != "segment"):
+        ap.error("--out-of-core is its own engine: jacobi/segment only, "
+                 "no --mesh/--fused")
+    if (args.mem_budget or args.blocks) and not args.out_of_core:
+        ap.error("--mem-budget/--blocks require --out-of-core")
+    if args.mesh:
+        ap.error("--mesh is not ported yet: ROADMAP.md Queue A item 10 "
+                 "(sharded and multi-process paths)")
     return args
 
 
@@ -125,12 +154,17 @@ def decompose_report(g, args, core_ref=None):
     from repro_torch.core.cost_model import DATACENTER, INTERNET, TPU_POD, simulate_runtime
     from repro_torch.core.kcore import KCoreConfig, kcore_decompose
     from repro_torch.core.messages import heartbeat_overhead, work_bound
+    from repro_torch.core.outofcore import outofcore_decompose
     from repro_torch.platform import resolve_device
 
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    res = kcore_decompose(g, KCoreConfig(mode=args.mode, backend=args.backend),
-                          fused=args.fused, device=dev)
+    if args.out_of_core:
+        res = outofcore_decompose(g, mem_budget=args.mem_budget, n_blocks=args.blocks,
+                                  device=dev)
+    else:
+        res = kcore_decompose(g, KCoreConfig(mode=args.mode, backend=args.backend),
+                              fused=args.fused, device=dev)
     wall = time.perf_counter() - t0
 
     ref = bz_core_numbers(g) if core_ref is None else core_ref
@@ -168,6 +202,8 @@ def decompose_report(g, args, core_ref=None):
         },
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
+    if args.out_of_core and res.block_stats is not None:
+        report["out_of_core"] = res.block_stats.to_json()
     if args.metrics:
         record_metrics(args, res, wall)
     return report, res

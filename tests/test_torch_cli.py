@@ -64,12 +64,62 @@ def test_cli_trace_and_flight_outputs(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (("--mesh", "4"), "item 10"),
-    (("--out-of-core",), "item 8"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     out = _run("repro_torch.launch.kcore_run", "--graph", "FC", "--device", "cpu", *argv)
     assert out.returncode == 2
     assert f"ROADMAP.md Queue A {item}" in out.stderr
+
+
+# the block-cycling telemetry each package measures on its own clock and process
+OOC_OWN = ("peak_rss_bytes", "ms_per_round")
+
+
+@pytest.mark.parametrize("argv", [
+    ("--graph", "FC", "--scale", "0.05", "--mem-budget", "4096"),
+    ("--graph", "ba", "--n", "400", "--blocks", "4"),
+    ("--graph", "chain", "--n", "200"),
+], ids=["FC-budget", "ba-blocks", "chain-default"])
+def test_cli_out_of_core_report_equals_the_jax_cli(argv):
+    port = _report(_run("repro_torch.launch.kcore_run", *argv, "--out-of-core", "--device", "cpu",
+                        "--json"))
+    ref = _report(_run("repro.launch.kcore_run", *argv, "--out-of-core", "--json"))
+    assert {k: port[k] for k in ACCOUNTING} == {k: ref[k] for k in ACCOUNTING}
+    assert port["correct_vs_BZ"] and set(ref) <= set(port)
+    assert set(port["phase_s"]) == set(ref["phase_s"]) == {"converge"}
+    got, want = dict(port["out_of_core"]), dict(ref["out_of_core"])
+    for k in OOC_OWN:
+        assert got.pop(k) > 0 and want.pop(k) > 0, k
+    assert got == want
+    assert port["device"] == "cpu" and port["dispatch"] == "torch"
+
+
+@pytest.mark.parametrize("argv", [
+    ("--out-of-core", "--fused"), ("--out-of-core", "--mode", "block_gs"),
+    ("--out-of-core", "--backend", "ell"), ("--out-of-core", "--mesh", "2"),
+    ("--mem-budget", "4096"), ("--blocks", "4"),
+])
+def test_cli_out_of_core_refusals_equal_the_jax_cli(argv):
+    port = _run("repro_torch.launch.kcore_run", "--graph", "chain", "--n", "30", "--device",
+                "cpu", *argv)
+    ref = _run("repro.launch.kcore_run", "--graph", "chain", "--n", "30", *argv)
+    assert port.returncode == ref.returncode == 2
+    assert port.stderr.splitlines()[-1] == ref.stderr.splitlines()[-1]
+    assert "--out-of-core" in port.stderr or "require" in port.stderr
+
+
+def test_cli_out_of_core_without_a_card_fails_unless_cpu_is_asked():
+    argv = ("--graph", "chain", "--n", "20", "--out-of-core", "--blocks", "2")
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+           "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.kcore_run", *argv],
+                         capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.kcore_run", *argv,
+                          "--device", "cpu"], capture_output=True, text=True, timeout=300,
+                         cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "out_of_core: {'n_blocks': 2" in out.stdout
 
 
 def _objects(text):

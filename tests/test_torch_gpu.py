@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, the
-decomposition through the k-core kernels, the streaming engine and the
+decomposition through the k-core kernels (in memory and out of core, blocks
+cycled through the card), the streaming engine and the
 sliding window on ``segment_sum`` against the CPU (and a window checkpoint
 restored onto the card), the query server and its concurrent front end on
 the card against the CPU and their snapshots, serving through the flash kernel
@@ -155,6 +156,37 @@ def test_other_static_modes_on_the_card_equal_the_cpu(cuda, mode, backend, n_blo
     assert res.rounds == cpu.rounds
     for k in ("messages_per_round", "active_per_round", "changed_per_round"):
         np.testing.assert_array_equal(getattr(res.stats, k), getattr(cpu.stats, k))
+
+
+@pytest.mark.parametrize("mem_budget,n_blocks", [(1 << 20, None), (None, 16)])
+def test_out_of_core_on_the_card_equals_the_cpu(cuda, mem_budget, n_blocks):
+    """Blocks cycled through the card: the CPU route's result field for field
+    (but the walls and the process's RSS), ``segment_sum`` launched, and the
+    card's measured peak below the arc arrays' bytes."""
+    import dataclasses
+
+    from repro_torch.core.outofcore import outofcore_decompose
+
+    g = generators.erdos_renyi(20000, 400000, seed=0)
+    cpu = outofcore_decompose(g, mem_budget=mem_budget, n_blocks=n_blocks, device="cpu")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sk.launches = 0
+    res = outofcore_decompose(g, mem_budget=mem_budget, n_blocks=n_blocks)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert res.dispatch == "kernel" and sk.launches > 0
+    np.testing.assert_array_equal(res.core, bz_core_numbers(g))
+    np.testing.assert_array_equal(res.core, cpu.core)
+    assert (res.rounds, res.converged) == (cpu.rounds, cpu.converged)
+    for k in ("messages_per_round", "active_per_round", "changed_per_round"):
+        np.testing.assert_array_equal(getattr(res.stats, k), getattr(cpu.stats, k))
+    got, want = dataclasses.asdict(res.block_stats), dataclasses.asdict(cpu.block_stats)
+    for k in ("peak_rss_bytes", "ms_per_round"):
+        got.pop(k), want.pop(k)
+    assert got == want
+    assert res.block_stats.device_block_bytes < res.block_stats.total_arc_bytes
+    assert peak < res.block_stats.total_arc_bytes
 
 
 @pytest.mark.parametrize("mode", ["dense", "compact", "fused", "auto"])

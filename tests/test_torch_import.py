@@ -33,7 +33,9 @@ for name in ("repro_torch.temporal", "repro_torch.temporal.events", "repro_torch
              "repro_torch.temporal.replay", "repro_torch.checkpoint", "repro_torch.obs.health",
              "repro_torch.obs.metrics", "repro_torch.streaming.server",
              "repro_torch.streaming.concurrent", "repro_torch.obs.http",
-             "repro_torch.launch.kcore_serve"):
+             "repro_torch.launch.kcore_serve", "repro_torch.graph.blockstore",
+             "repro_torch.core.outofcore", "repro_torch.core.termination",
+             "repro_torch.graph.io", "repro_torch.core.ktruss"):
     assert name in names, name
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked

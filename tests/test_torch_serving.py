@@ -559,6 +559,9 @@ def recorder():
     flight.disable()
     flight.reset()
     flight.get_recorder().watch([])
+    # watch([]) and reset() keep the old vertices' (emptied) timelines, which a
+    # later test in the same process would read back as a watchlist
+    flight.get_recorder()._timelines.clear()
 
 
 def test_flight_records_snapshot_flip_and_checkpoint_events(recorder, tmp_path):
@@ -600,6 +603,7 @@ def test_watchlist_timelines_equal_the_reference(recorder):
         assert flight.to_json()["watch"] == {v: tl for v, tl in got.items()}
     finally:
         jax_flight.get_recorder().watch([])
+        jax_flight.get_recorder()._timelines.clear()
         jax_flight.disable()
         jax_flight.reset()
 
