@@ -13,7 +13,10 @@ checkpointed through ``repro_torch.checkpoint``), k-core serving (``repro_torch.
 ``KCoreServer`` behind ``ConcurrentKCoreServer`` and ``obs.http``, and ``launch.kcore_serve``:
 reads of a published snapshot while the engine re-converges on the kernels), the
 out-of-core decomposition (``repro_torch.core.outofcore``: arc blocks cycled from a
-disk store through the card, each block's superstep on ``segment_sum``), LM serving
+disk store through the card, each block's superstep on ``segment_sum``), the sharded and
+multi-process paths (``kcore_decompose_sharded`` and the streaming engine on a mesh of
+shards, and across gloo processes, each round's h-index and receivers on ``segment_sum``
+over the stacked local shards), LM serving
 (``launch.serve``, prefill attention
 on the flash-attention kernel) and DIN (``launch.din_serve``, the context bag
 on the embedding-bag kernel); each kernel is hand-written CUDA under
@@ -55,7 +58,9 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
 9. The streaming gate: ``benchmarks/streaming_baseline.json``'s nine mean
    message ratios reproduced exactly at its settings (the loop of
    ``benchmarks/streaming_maintenance.py`` on the port's dense engine, every
-   batch BZ-checked).
+   batch BZ-checked), with the benchmark's sharded twin beside it on a
+   4-shard mesh: its cores and per-round bills equal the dense engine's every
+   batch.
 10. Full size, streaming: one engine built on SPR at scale 1.0 with a fused
    initial decomposition, cloned through ``state_dict`` into ``dense``,
    ``compact``, ``fused`` and ``auto`` engines; two churn batches of one
@@ -176,7 +181,22 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    ``python -m repro_torch.launch.kcore_run --graph FC --scale 0.05
    --out-of-core --mem-budget 4194304 --json`` in a subprocess on the card:
    exit 0, ``correct_vs_BZ`` and an ``out_of_core`` block.
-21. The ``kernels`` JSON line: each kernel's launches in the main path's
+21. The sharded and multi-process paths: SPR at scale 1.0 (phase 6's graph)
+   on a 4-shard mesh through ``kcore_run``'s entry point with ``--mesh 4``,
+   host loop then ``--fused``: cores equal BZ, rounds and every per-round
+   bill equal phase 6's fused run, ``segment_sum`` launched; the shards'
+   balance, the walls, ms a round, the peak and the launches printed; then
+   ``segment_sum`` bit-exact on the widest shard's staged slice. Phase 10's
+   first SPR batch (churn 0.002) replayed from its state in ``sharded`` and
+   ``fused_sharded`` on the mesh: every ``BatchResult`` accounting field
+   equals phase 10's dense batch. Two gloo processes on the card (CUDA
+   tensors, 2 shards each, a 4-shard global mesh) run EEN at 0.05 fused:
+   cores and bills equal the single-process run, the host loop refuses the
+   mesh, each rank on ``cuda`` with ``segment_sum`` launched, under a
+   240 s limit. Then ``kcore_run --graph FC --scale 0.05 --mesh 2 --fused
+   --json`` and ``kcore_serve --graph EEN --scale 0.05 --mesh 2 --frontier
+   sharded --batches 2 --queries 10000 --verify`` in subprocesses.
+22. The ``kernels`` JSON line: each kernel's launches in the main path's
    runs, its largest error against its plain version, its time a call and
    on the device (flash attention's under ``timed``), the plain version's,
    the library call's and the bound.
@@ -903,36 +923,45 @@ def block_gs_full(torch, dev, g, core_bz, jacobi, spr_scale, launches) -> int:
 
 def streaming_gate(torch, dev, launches) -> None:
     """Phase 9: ``benchmarks/streaming_baseline.json``'s mean ratios at its
-    settings (``benchmarks/streaming_maintenance.py``'s loop)."""
+    settings (``benchmarks/streaming_maintenance.py``'s loop), with its
+    sharded twin beside the dense engine, here on a 4-shard mesh."""
     import numpy as np
 
     from repro_torch.core.bz import bz_core_numbers
     from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.distribution.compat import make_mesh
     from repro_torch.graph import generators
     from repro_torch.kernels.kcore_hindex import ops as hk
     from repro_torch.kernels.segment_sum import ops as sk
-    from repro_torch.streaming import StreamingKCoreEngine, random_churn_batch
+    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine, random_churn_batch
 
     base = json.loads((ROOT / "benchmarks" / "streaming_baseline.json").read_text())
     cfg = base["settings"]
-    print(f"  settings {cfg}; the dense engine only: the sharded twin the benchmark runs beside "
-          f"it waits for ROADMAP.md Queue A item 10")
+    mesh = make_mesh((SHARDS,), ("data",), device=dev)
+    print(f"  settings {cfg}; the sharded twin on a {SHARDS}-shard mesh beside the dense engine")
     for abbrev in cfg["graphs"]:
         for churn in cfg["churn_rates"]:
             g = generators.snap_analogue(
                 abbrev, scale=cfg["target_n"] / generators.SNAP_BY_ABBREV[abbrev].n, seed=0)
             t0 = time.perf_counter()
+            hk.launches = sk.launches = 0
             eng = StreamingKCoreEngine(g, device=dev)
+            twin = StreamingKCoreEngine(g, StreamingConfig(frontier="sharded"), mesh=mesh)
+            launches["kcore_hindex"] += hk.launches
+            launches["segment_sum"] += sk.launches
             rng = np.random.default_rng(1)
-            ratios, ok = [], True
+            ratios, ok, twin_ok = [], True, bool((twin.core == eng.core).all())
             for _ in range(cfg["batches"]):
                 g_before = eng.graph
                 b = max(2, int(churn * g_before.m))
                 batch = random_churn_batch(g_before, b // 2, b - b // 2, rng)
                 hk.launches = sk.launches = 0
                 res = eng.apply_batch(batch)
+                res_sh = twin.apply_batch(batch)
                 launches["kcore_hindex"] += hk.launches
                 launches["segment_sum"] += sk.launches
+                twin_ok = (twin_ok and res_sh.mode == "sharded" and same_bills(res_sh, res)
+                           and np.array_equal(res_sh.core, res.core))
                 scratch = kcore_decompose(eng.graph, device=dev)
                 ok = ok and bool((res.core == bz_core_numbers(eng.graph)).all())
                 ratios.append(round(res.total_messages / max(scratch.stats.total_messages, 1), 4))
@@ -941,12 +970,16 @@ def streaming_gate(torch, dev, launches) -> None:
             check(ok and mean == base["mean_ratio"][key],
                   f"streaming gate {key}: n={g.n} m={g.m}, every batch BZ-exact, mean ratio "
                   f"{mean} == {base['mean_ratio'][key]} ({time.perf_counter() - t0:.2f} s)")
+            check(twin_ok, f"streaming gate {key}: the {SHARDS}-shard sharded twin equals the "
+                           f"dense engine in cores, rounds and per-round bills, every batch")
 
 
-def streaming_full(torch, dev, g, core_bz, launches) -> int:
+def streaming_full(torch, dev, g, core_bz, launches):
     """Phase 10: one SPR stream through the four frontier modes; after each
     batch the segment sums of a compact subproblem, kernel against plain.
-    Returns the largest segment_sum error."""
+    Returns the largest segment_sum error and ``(state, batch, result)``:
+    the engine's state before the stream, its first batch and the dense
+    engine's result of it, which phase 21 replays on a mesh."""
     import numpy as np
 
     from repro_torch.core import dispatch
@@ -972,7 +1005,7 @@ def streaming_full(torch, dev, g, core_bz, launches) -> int:
           f"initial decomposition, {base.init_result.rounds} rounds, and 4 clones through "
           f"state_dict in {time.perf_counter() - t0:.1f} s")
     check(np.array_equal(base.core, core_bz), "streaming engine: initial cores equal BZ")
-    del base, state
+    del base
     rng = np.random.default_rng(1)
     g_cur = g
     for i, churn in enumerate(STREAM_CHURN):
@@ -989,6 +1022,8 @@ def streaming_full(torch, dev, g, core_bz, launches) -> int:
             seen[mode] = (sk.launches, hk.launches,
                           torch.cuda.max_memory_allocated() if on_card else 0)
         g_cur = engines["dense"].graph
+        if i == 0:
+            first = (state, batch, results["dense"])
         t0 = time.perf_counter()
         bz = bz_core_numbers(g_cur)
         t_bz = time.perf_counter() - t0
@@ -1034,7 +1069,7 @@ def streaming_full(torch, dev, g, core_bz, launches) -> int:
                 "at a compact subproblem"))
         del src, dst, row_ptr, core, act, sub_src, sub_ptr, est_u, est_dst
     del engines, results, g_cur
-    return err
+    return err, first
 
 
 # the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 3,000,000
@@ -1047,15 +1082,16 @@ TEMPORAL = {"remove_frac": 0.15, "window": 3_000_000, "stride": 300_000, "slides
 WALLS = ("patch_s", "seed_s", "converge_s", "reconstruct_s", "recompiles", "compile_s", "stage_s")
 
 
-def same_batch(a, b) -> bool:
-    """Equal cores, per-round bills, delta and every accounting field."""
+def same_batch(a, b, skip=()) -> bool:
+    """Equal cores, per-round bills, delta and every accounting field but
+    those in ``skip``."""
     import dataclasses
 
     import numpy as np
 
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if f.name in WALLS or f.name == "stats":
+        if f.name in WALLS or f.name == "stats" or f.name in skip:
             continue
         if f.name == "delta":
             if not all(np.array_equal(getattr(x, k), getattr(y, k))
@@ -1867,6 +1903,223 @@ def out_of_core_full(torch, dev, g_spr, core_spr, spr_fused, spr_scale, launches
     return err
 
 
+# the sharded phase: the paper's distributed model on a 4-shard mesh of one card; two gloo
+# processes of 2 shards each; the CLIs with --mesh 2
+SHARDS = 4
+RANKS = 2
+SHARDED_CLI_RUN = ("--graph", "FC", "--scale", "0.05", "--mesh", "2", "--fused", "--json")
+SHARDED_CLI_SERVE = ("--graph", "EEN", "--scale", "0.05", "--mesh", "2", "--frontier", "sharded",
+                     "--batches", "2", "--queries", "10000", "--verify")
+# one rank of the two-process run: EEN at 0.05 on a 4-shard global mesh, fused; the host loop
+# must refuse the mesh; prints its device, launches and bills
+RANK_SCRIPT = r"""
+import json, sys, time
+from repro_torch.distribution import compat
+rank, nproc, port, device = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+compat.init_multiprocess(f"127.0.0.1:{port}", nproc, rank, timeout_s=120)
+from repro_torch.core.kcore import kcore_decompose_sharded
+from repro_torch.graph import generators
+from repro_torch.kernels.segment_sum import ops as sk
+mesh = compat.global_mesh("shard", local_shards=2, device=device)
+g = generators.snap_analogue("EEN", 0.05, seed=0)
+try:
+    kcore_decompose_sharded(g, mesh, ("shard",))
+    refused = False
+except ValueError:
+    refused = True
+sk.launches = 0
+t0 = time.perf_counter()
+res = kcore_decompose_sharded(g, mesh, ("shard",), fused=True)
+print(json.dumps({"rank": rank, "device": str(mesh.device), "shards": mesh.size,
+                  "local_shards": mesh.local_shards, "refused": refused, "launches": sk.launches,
+                  "wall_s": time.perf_counter() - t0, "phase_s": res.phase_s,
+                  "rounds": res.rounds, "core": res.core.tolist(),
+                  "stats": [getattr(res.stats, k).tolist() for k in
+                            ("messages_per_round", "active_per_round", "changed_per_round")]}))
+"""
+
+
+def two_ranks(dev, g_een, want, launches) -> None:
+    """Phase 21, part 4: two gloo processes on the card, 2 shards each."""
+    import os
+    import socket
+    import subprocess
+
+    import numpy as np
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_SCRIPT, str(r), str(RANKS), str(port),
+                               dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=ROOT) for r in range(RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240))
+    except subprocess.TimeoutExpired:
+        outs = [("", "timed out")] * RANKS
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        rep = json.loads(out.strip().splitlines()[-1]) if p.returncode == 0 and out.strip() else {}
+        bills = [getattr(want.stats, k).tolist() for k in STATS]
+        print(f"    rank {rank}: exit {p.returncode}, device {rep.get('device')}, "
+              f"{rep.get('local_shards')} of {rep.get('shards')} shards, rounds {rep.get('rounds')},"
+              f" wall_s {rep.get('wall_s')}, phase_s {rep.get('phase_s')}, launches segment_sum "
+              f"{rep.get('launches')}")
+        check(p.returncode == 0 and rep.get("refused") is True,
+              f"rank {rank}: the host loop refuses the multi-process mesh"
+              f"{'' if p.returncode == 0 else ': ' + err[-2000:]}")
+        launches["segment_sum"] += rep.get("launches", 0)
+        check(rep.get("rounds") == want.rounds and np.array_equal(rep.get("core", []), want.core)
+              and rep.get("stats") == bills,
+              f"rank {rank}: EEN at 0.05 on {RANKS} processes equals the single-process run in "
+              f"cores, rounds and per-round bills (n={g_een.n})")
+        if dev.type == "cuda":
+            check(rep.get("device", "").startswith("cuda") and rep.get("launches", 0) > 0,
+                  f"rank {rank} ran on the card and launched segment_sum")
+    print(f"    {RANKS} processes, {wall:.1f} s with start-up (time limit 240 s)")
+
+
+def cli_json(argv: list, small: bool):
+    """A CLI of the port in a subprocess: ``(exit code, stdout, stderr, wall)``."""
+    import os
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *argv, *(["--device", "cpu"] if small else [])],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    return out.returncode, out.stdout, out.stderr, time.perf_counter() - t0
+
+
+def sharded_full(torch, dev, g, core_bz, spr_fused, stream_first, spr_scale, launches) -> int:
+    """Phase 21: the sharded and multi-process paths. Returns the largest
+    segment_sum error."""
+    import numpy as np
+
+    from repro_torch.core import dispatch
+    from repro_torch.core.kcore import _bs_iters, kcore_decompose_sharded
+    from repro_torch.distribution.compat import make_mesh
+    from repro_torch.graph import generators
+    from repro_torch.graph.partition import balance_report, shard_graph
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.launch import kcore_run
+    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    mesh = make_mesh((SHARDS,), ("data",), device=dev)
+
+    # 1. SPR through kcore_run's entry point with --mesh, host loop then --fused
+    t0 = time.perf_counter()
+    sg = shard_graph(g, SHARDS)
+    t_shard = time.perf_counter() - t0
+    bal = balance_report(sg)
+    padded = sg.src.nbytes + sg.dst.nbytes + sg.arc_mask.nbytes
+    print(f"  SPR on {SHARDS} shards: shard_graph {t_shard:.2f} s; V {sg.verts_per_shard}, A "
+          f"{sg.arcs_per_shard}, balance {bal}; padded arc blocks {padded} bytes for "
+          f"{g.num_arcs} arcs ({SHARDS * sg.arcs_per_shard / max(g.num_arcs, 1):.3f} slots an arc)")
+    n_iters = _bs_iters(g.max_deg)
+    for label, extra in [("host loop", []), ("fused", ["--fused"])]:
+        args = kcore_run.parse_args(["--graph", "SPR", "--scale", str(spr_scale), "--device",
+                                     dev.type, "--json", "--mesh", str(SHARDS), *extra])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        report, res = kcore_run.decompose_report(g, args, core_ref=core_bz)
+        launches["segment_sum"] += sk.launches
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        conv_s = res.phase_s.get("device-converge", res.phase_s.get("converge", 0.0))
+        print(f"  --mesh {SHARDS} {label}: rounds={report['rounds']} total_messages="
+              f"{report['total_messages']} mesh={report['mesh']} wall_s={report['wall_s']} "
+              f"phase_s={report['phase_s']} ms/round={conv_s * 1e3 / max(res.rounds, 1):.3f} "
+              f"peak_bytes={peak} launches: segment_sum {sk.launches} ({n_iters + 1} a round "
+              f"stacked: {(n_iters + 1) * res.rounds})")
+        check(report["correct_vs_BZ"] and report["converged"] and report["mesh"] == SHARDS,
+              f"SPR --mesh {SHARDS} {label}: cores equal BZ")
+        check(same_bills(res, spr_fused),
+              f"SPR --mesh {SHARDS} {label}: rounds and every per-round bill equal phase 6's fused "
+              f"run")
+        if on_card:
+            check(sk.launches > 0, f"SPR --mesh {SHARDS} {label} launched segment_sum")
+    # segment_sum on the widest shard's staged slice: round 1's first probe from the degrees
+    st = dispatch.stage_shards(sg, mesh, ("data",))
+    d = int(np.argmax(sg.arc_mask.sum(axis=1)))
+    V, A = sg.verts_per_shard, sg.arcs_per_shard
+    est = st.deg
+    est_dst = torch.where(st.arc_mask[d * A:(d + 1) * A],
+                          est.index_select(0, st.dst[d * A:(d + 1) * A]), 0)
+    ptr = st.row_ptr[d * V:(d + 1) * V + 1] - d * A
+    hits = first_probe_hits(torch, est[d * V:(d + 1) * V], est_dst, st.src[d * A:(d + 1) * A] - d * V)
+    err = segsum_held(torch, [(f"shard {d}, the widest", hits, ptr)],
+                      "at the widest shard's staged slice")
+    del st, est_dst, ptr, hits, sg
+
+    # 3. SPR stream batch 0 (phase 10's) in sharded and fused_sharded on the mesh
+    state, batch, dense = stream_first
+    for frontier in ("sharded", "fused"):
+        eng = StreamingKCoreEngine.from_state_dict(state, StreamingConfig(frontier=frontier),
+                                                   mesh=mesh)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sk.launches = 0
+        res = eng.apply_batch(batch)
+        launches["segment_sum"] += sk.launches
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        print(f"    {frontier:8} ran {res.mode:13} patch_s {res.patch_s:.4f} seed_s "
+              f"{res.seed_s:.4f} converge_s {res.converge_s:.4f} reconstruct_s "
+              f"{res.reconstruct_s:.4f}; rounds {res.rounds}, messages {res.total_messages}; "
+              f"shard_A_floor {eng.state_dict()['shard_A_floor']}; launches segment_sum "
+              f"{sk.launches}; peak_bytes {peak}")
+        check(res.mode == ("sharded" if frontier == "sharded" else "fused_sharded")
+              and same_batch(res, dense, skip=("mode",)),
+              f"SPR stream batch 0 on {SHARDS} shards, {res.mode}: every BatchResult accounting "
+              f"field equals phase 10's dense batch")
+        if on_card:
+            check(sk.launches > 0, f"SPR stream batch 0, {res.mode}, launched segment_sum")
+        del eng, res
+
+    # 4. two processes on the card
+    g_een = generators.snap_analogue("EEN", 0.05, seed=0)
+    want = kcore_decompose_sharded(g_een, mesh, ("data",), fused=True)
+    two_ranks(dev, g_een, want, launches)
+
+    # 5. the CLIs
+    small = not on_card
+    rc, text, err_text, wall = cli_json(["repro_torch.launch.kcore_run", *SHARDED_CLI_RUN], small)
+    report = json.loads(text[text.index("{"):text.rindex("}") + 1]) if "{" in text else {}
+    print(f"    kcore_run {' '.join(SHARDED_CLI_RUN)}: rounds {report.get('rounds')}, mesh "
+          f"{report.get('mesh')}, dispatch {report.get('dispatch')}, phase_s "
+          f"{report.get('phase_s')} ({wall:.1f} s with start-up)")
+    check(rc == 0 and report.get("correct_vs_BZ") is True and report.get("mesh") == 2
+          and report.get("dispatch") == ("torch" if small else "kernel"),
+          f"kcore_run {' '.join(SHARDED_CLI_RUN)}: exit {rc}, correct_vs_BZ, mesh 2"
+          f"{'' if rc == 0 else ': ' + err_text[-2000:]}")
+    rc, text, err_text, wall = cli_json(["repro_torch.launch.kcore_serve", *SHARDED_CLI_SERVE],
+                                        small)
+    lines = text.splitlines()
+    for line in lines:
+        if not line.startswith("# final_stats="):
+            print(f"    {line}")
+    cols = next((line.split(",") for line in lines if line.startswith("tick,")), [])
+    rows = [dict(zip(cols, line.split(","))) for line in lines if line[:1].isdigit()]
+    check(rc == 0 and len(rows) == 2 and all(r["verified"] == "True" and r["mode"] == "sharded"
+                                             for r in rows)
+          and any(line.startswith("# graph=") and " mesh=2 " in line for line in lines),
+          f"kcore_serve {' '.join(SHARDED_CLI_SERVE)}: exit {rc}, 2 sharded ticks verified "
+          f"({wall:.1f} s){'' if rc == 0 else ': ' + err_text[-2000:]}")
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return err
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -2177,7 +2430,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     # ------------------------------------------------------------------ #
     phase(f"10. full size, streaming: SPR at scale {spr_scale}, churn "
           f"{' then '.join(map(str, STREAM_CHURN))} in each frontier mode")
-    err = streaming_full(torch, dev, g, core_bz, launches)
+    err, stream_first = streaming_full(torch, dev, g, core_bz, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
 
     # ------------------------------------------------------------------ #
@@ -2234,10 +2487,17 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"and kcore_run --out-of-core")
     err = out_of_core_full(torch, dev, g, core_bz, spr_fused, spr_scale, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
-    del g, core_bz, spr_fused
 
     # ------------------------------------------------------------------ #
-    phase("21. kernels")
+    phase(f"21. the sharded and multi-process paths: SPR at scale {spr_scale} on {SHARDS} shards "
+          f"through kcore_run --mesh, the SPR stream's first batch on the mesh, {RANKS} processes, "
+          f"the CLIs")
+    err = sharded_full(torch, dev, g, core_bz, spr_fused, stream_first, spr_scale, launches)
+    stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
+    del g, core_bz, spr_fused, stream_first
+
+    # ------------------------------------------------------------------ #
+    phase("22. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]

@@ -19,7 +19,8 @@ search with segment-sum hit counts (the route the streaming engine needs).
 Either way the receivers are a segment sum. ``block_gs_round_program``
 stages the block-Gauss-Seidel sweep the same way (``stage_blocks``: each
 vertex block's arcs and row pointer once), the blocks swept in order within
-a round. Dispatch
+a round, and ``stage_shards`` a mesh's shards for the sharded engines of
+``core.kcore``. Dispatch
 is an execution-placement choice, never an accounting one: cores and bills
 are bit-equal across routes and devices.
 """
@@ -33,7 +34,8 @@ import torch
 
 from repro_torch.core.kcore import (_finish_round, _fused_loop, _hindex_by_bsearch, _receivers,
                                     masked_round_segment)
-from repro_torch.graph.partition import shard_layout
+from repro_torch.distribution import compat
+from repro_torch.graph.partition import ShardedGraph, shard_layout
 from repro_torch.graph.structs import EllGraph
 from repro_torch.kernels.kcore_hindex.ops import hindex_rows
 from repro_torch.platform import resolve_device
@@ -70,6 +72,40 @@ def stage_arcs(src, dst, n: int, device: torch.device):
         raise ValueError("arcs must be sorted by source (CSR order)")
     rows = torch.arange(n + 1, dtype=torch.int32, device=device)
     return src, dst, torch.searchsorted(src, rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedShards:
+    """The shards of a ``ShardedGraph`` this process holds, on the mesh's
+    device, stacked into one CSR: local shard l's vertex v is row
+    ``l * V + v`` and its arcs (src-sorted, the padding arcs on local row
+    V - 1 with the mask False) follow shard l - 1's, so one ``segment_sum``
+    launch serves every local shard. ``dst`` stays global: an index into
+    the estimates gathered over the mesh."""
+
+    mesh: compat.Mesh
+    V: int
+    src: torch.Tensor       # (L * A,) int32 stacked local rows
+    dst: torch.Tensor       # (L * A,) int32 global vertex ids
+    row_ptr: torch.Tensor   # (L * V + 1,) int64
+    arc_mask: torch.Tensor  # (L * A,) bool
+    deg: torch.Tensor       # (L * V,) int32
+
+
+def stage_shards(sg: ShardedGraph, mesh: compat.Mesh, axis_names) -> StagedShards:
+    """Stage this process's shards of ``sg`` (laid over ``mesh``'s axes
+    ``axis_names``) on the mesh's device, once."""
+    if compat.shard_count(mesh, axis_names) != sg.n_shards:
+        raise ValueError(f"{sg.n_shards} shards staged on a mesh of {mesh.size}")
+    L, V = mesh.local_shards, sg.verts_per_shard
+    local = compat.stage_to_mesh(sg.src, mesh)
+    first = torch.arange(L, dtype=torch.int32, device=mesh.device)[:, None] * V
+    src, dst, row_ptr = stage_arcs((local + first).reshape(-1),
+                                   compat.stage_to_mesh(sg.dst, mesh).reshape(-1), L * V,
+                                   mesh.device)
+    return StagedShards(mesh, V, src, dst, row_ptr,
+                        compat.stage_to_mesh(sg.arc_mask, mesh).reshape(-1),
+                        compat.stage_to_mesh(sg.deg, mesh).reshape(-1))
 
 
 @dataclasses.dataclass(frozen=True)

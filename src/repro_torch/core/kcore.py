@@ -26,6 +26,14 @@ Execution modes, as in the reference:
                    estimates the blocks before it wrote (the binary search
                    with ``segment_sum`` hit counts per block). Host loop only.
 
+Distribution: ``kcore_decompose_sharded`` runs the jacobi superstep over a
+mesh of shards (``distribution/compat.py``): vertex state split by
+contiguous range, arcs co-located with their source (``graph/partition.py``),
+one all_gather of the estimate vector per round (this IS the paper's message
+broadcast), counts purely local over the process's shards stacked into one
+CSR, termination a sum over the mesh. On one process the gathers and sums
+are the shards' own arrays; across processes they are gloo collectives.
+
 ``core/dispatch.py`` builds the supersteps: on CUDA they run the
 hand-written kernels, on the CPU their plain PyTorch versions. Cores and
 per-round ``MessageStats`` are bit-equal to the reference's in every mode.
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.messages import MessageStats
+from repro_torch.distribution import compat
 from repro_torch.graph.structs import Graph, build_ell
 from repro_torch.kernels import _build
 from repro_torch.kernels.kcore_hindex.ref import hindex_rows_ref  # noqa: F401  (binary-search oracle)
@@ -153,35 +162,38 @@ def masked_round_segment(est, src, dst, row_ptr, arc_mask, active, n_iters):
 # Fused convergence — bills stay on the device
 # ---------------------------------------------------------------------- #
 
-def _fused_loop(round_body, est, active, deg, max_rounds):
+def _fused_loop(round_body, est, active, deg, max_rounds, psum=lambda t: t):
     """Run ``round_body(est, active) -> (est', changed, recv)`` to the fixpoint.
 
     The reference's ``lax.while_loop`` contract, driven from the host: per
     executed round r three ``(max_rounds,)`` int32 device buffers receive
     messages (Σ deg over changed vertices), the changed count and the
     receiver count; the next frontier is this round's receivers. The host
-    reads one two-flag tensor per round (changed anything? receivers
-    left?), where the reference's loop tests the same on the device.
+    reads the round's changed and receiver counts once a round (changed
+    anything? receivers left?), where the reference's loop tests the same
+    on the device. On a mesh across processes ``psum`` sums the counts over
+    the ranks before they are stored or read, so every rank leaves on the
+    same round.
 
     Returns ``(est', rounds, stopped, final_active, msgs_buf, changed_buf,
     recv_buf)``: ``rounds`` counts every executed superstep including a
     final unproductive one, ``stopped`` is True iff the loop exited on an
     unproductive round, ``final_active`` is the exit frontier size.
     """
-    zeros = torch.zeros(max_rounds, dtype=torch.int32, device=est.device)
-    mb, cb, rb = zeros, zeros.clone(), zeros.clone()
+    bufs = torch.zeros((3, max_rounds), dtype=torch.int32, device=est.device)
     act, r, stop = active, 0, False
-    go = max_rounds > 0 and bool(act.any())
+    n_active = int(psum(act.sum()))
+    go = max_rounds > 0 and n_active > 0
     while go:
         est_new, changed, recv = round_body(est, act)
-        mb[r] = torch.where(changed, deg, 0).sum()
-        cb[r] = changed.sum()
-        rb[r] = recv.sum()
-        flags = torch.stack([changed.any(), recv.any()]).cpu()
+        counts = psum(torch.stack([torch.where(changed, deg, 0).sum(), changed.sum(),
+                                   recv.sum()]))
+        bufs[:, r] = counts
+        n_changed, n_active = counts[1:].tolist()
         est, act, r = est_new, recv, r + 1
-        stop = not bool(flags[0])
-        go = not stop and r < max_rounds and bool(flags[1])
-    return est, r, stop, int(act.sum()), mb, cb, rb
+        stop = not n_changed
+        go = not stop and r < max_rounds and n_active > 0
+    return est, r, stop, n_active, bufs[0], bufs[1], bufs[2]
 
 
 def fused_convergence(est, src, dst, row_ptr, arc_mask, active, deg,
@@ -358,6 +370,186 @@ def _decompose_body(g: Graph, config: KCoreConfig, use_fused: bool,
         rec.end_run(converged=converged, messages=int(stats.total_messages))
     return KCoreResult(core=core, rounds=rounds, converged=converged,
                        stats=stats,
+                       recompiles=_build.build_count() - builds0,
+                       compile_s=_build.build_seconds() - bsecs0,
+                       phase_s=phase_s, dispatch=plan.kind)
+
+
+# ---------------------------------------------------------------------- #
+# Sharded superstep — the paper's distributed model
+# ---------------------------------------------------------------------- #
+
+def _sharded_round(st, est, active, n_iters, receivers=True):
+    """One masked Jacobi superstep over the shards this process holds.
+
+    ``st`` is ``dispatch.stage_shards``' staging of the layout contract of
+    ``graph/partition.py`` (the local shards stacked into one CSR);
+    ``est``/``active`` are the local shards' ``(L*V,)`` state (``active``
+    None: everyone). Per round: one all_gather of the estimates over the
+    mesh (the paper's message broadcast), ``est[dst]`` for the local arcs,
+    the h-index by ``n_iters`` segment sums over the stacked local rows, and
+    with ``receivers`` a 1-bit all_gather of the changed mask whose segment
+    sum marks next round's receivers. Returns ``(est', changed, recv)``,
+    all local (``recv`` None without ``receivers``).
+    """
+    mesh = st.mesh
+    est_dst = torch.where(st.arc_mask, compat.all_gather(est, mesh).index_select(0, st.dst), 0)
+    h = _hindex_by_bsearch(est, est_dst, st.src, st.row_ptr, n_iters)
+    new = h if active is None else torch.where(active, h, est)
+    changed = new < est
+    if not receivers:
+        return new, changed, None
+    return new, changed, _receivers(compat.all_gather(changed, mesh), st.dst, st.row_ptr,
+                                    st.arc_mask)
+
+
+def _masked_sharded_superstep(st, n_iters):
+    """Frontier-masked sharded superstep ``superstep(est, active) -> (est',
+    changed, recv, msgs)`` over staged shards: est', changed and recv local,
+    msgs (Σ deg over changed vertices) summed over the mesh. The streaming
+    engine iterates it on a mesh."""
+    def superstep(est, active):
+        new, changed, recv = _sharded_round(st, est, active, n_iters)
+        return new, changed, recv, compat.psum(torch.where(changed, st.deg, 0).sum(), st.mesh)
+
+    return superstep
+
+
+def make_sharded_superstep(sg, mesh, axis_names, n_iters: int, masked: bool = False):
+    """Build a superstep over a mesh; returns ``(superstep, staged)``.
+
+    ``sg`` is a ``graph.partition.ShardedGraph`` over ``mesh``'s shards;
+    its arrays are staged once here (``dispatch.stage_shards``), where the
+    reference passes them to its jitted shard_map on every call. State is
+    the local shards' ``(L*V,)`` estimate vector. Per round: the est
+    all_gather, est[dst] for local arcs, n_iters local segment sums (the
+    binary-search h-index) and a psum of (messages, changed-any), the
+    paper's heartbeat/termination. ``superstep(est) -> (est', msgs, any)``;
+    with ``masked=True`` ``superstep(est, active) -> (est', changed, recv,
+    msgs)`` (see ``_masked_sharded_superstep``).
+    """
+    from repro_torch.core import dispatch as _dispatch
+
+    st = _dispatch.stage_shards(sg, mesh, axis_names)
+    if masked:
+        return _masked_sharded_superstep(st, n_iters), st
+
+    def superstep(est):
+        new, changed, _ = _sharded_round(st, est, None, n_iters, receivers=False)
+        msgs, n_changed = compat.psum(
+            torch.stack([torch.where(changed, st.deg, 0).sum(), changed.sum()]), mesh)
+        return new, msgs, n_changed > 0
+
+    return superstep, st
+
+
+def _fused_sharded_convergence(st, n_iters: int, max_rounds: int):
+    """Fused convergence over staged shards: ``prog(est, active) -> (est',
+    rounds, stopped, final_active, msgs_buf, changed_buf, recv_buf)``, the
+    contract of ``fused_convergence`` with est' local and the rest summed
+    over the mesh. Per round the cross-process traffic is one est
+    all_gather, one 1-bit changed all_gather and one psum of the round's
+    three counts, whose sums every rank reads to decide the stop alike."""
+    def prog(est, active):
+        return _fused_loop(lambda e, a: _sharded_round(st, e, a, n_iters), est, active, st.deg,
+                           max_rounds, psum=lambda t: compat.psum(t, st.mesh))
+
+    return prog
+
+
+def kcore_decompose_sharded(g: Graph, mesh, axis_names, max_rounds: int | None = None,
+                            fused: bool = False) -> KCoreResult:
+    """Run the sharded engine to convergence on ``mesh`` (any shard count,
+    one shard included), on the mesh's device.
+
+    Cores, rounds and per-round bills equal ``kcore_decompose``'s. The host
+    loop reads each round's counts back; ``fused=True`` keeps them on the
+    device (``core.runtime.fused_converge_sharded``). A mesh across
+    processes takes the fused loop only (``ValueError`` otherwise).
+    ``phase_s``: ``stage`` (the partition and its copy to the device), then
+    ``converge``, or ``device-converge`` and ``host-reconstruct`` fused.
+    """
+    from repro_torch.core import dispatch as _dispatch
+    from repro_torch.graph.partition import balance_report, shard_graph
+    from repro_torch.obs import metrics as _metrics
+
+    if compat.is_multiprocess_mesh(mesh) and not fused:
+        # the host loop reads every round's state on one process
+        raise ValueError("multi-process meshes require fused=True")
+    builds0, bsecs0 = _build.build_count(), _build.build_seconds()
+    plan = _dispatch.resolve_plan(mesh.device)
+    n_dev = compat.shard_count(mesh, axis_names)
+    t_stage = time.perf_counter()
+    sg = shard_graph(g, n_dev)
+    phase_s = {"stage": time.perf_counter() - t_stage}
+    # straggler visibility: a round's wall is the slowest shard's
+    _metrics.gauge("kcore_shard_imbalance").set(balance_report(sg)["imbalance"])
+    n_iters = _bs_iters(g.max_deg)
+
+    deg64 = g.deg.astype(np.int64)
+    msgs = [int(deg64.sum())]
+    active = [g.n, int((g.deg > 0).sum())]
+    changed_counts = [g.n]
+    cap = max_rounds if max_rounds is not None else g.n + 1
+
+    rec = _flight.recorder()
+    if rec.active:
+        rec.start_run("static", "fused_sharded" if fused else "sharded", n=g.n)
+        rec.record_round(active[0], msgs[0], changed_counts[0], est=g.deg)
+
+    with _trace.span("kcore.decompose", n=g.n, m=g.m, mode="sharded", mesh_devices=n_dev,
+                     fused=bool(fused), device=str(mesh.device)) as _sp:
+        if fused:
+            from repro_torch.core.runtime import fused_converge_sharded
+
+            outcome = fused_converge_sharded(
+                g.deg, np.ones(g.n, bool), sg, mesh, tuple(axis_names),
+                n=g.n, n_iters=n_iters, max_rounds=cap, frontier1=active[1])
+            rounds, converged = outcome.rounds, outcome.converged
+            msgs.extend(outcome.msgs.tolist())
+            changed_counts.extend(outcome.changed.tolist())
+            active.extend(outcome.recv.tolist())
+            core = outcome.est
+            phase_s["stage"] += outcome.stage_s
+            phase_s["device-converge"] = outcome.device_s
+            phase_s["host-reconstruct"] = outcome.reconstruct_s
+        else:
+            t_stage = time.perf_counter()
+            superstep, _ = make_sharded_superstep(sg, mesh, axis_names, n_iters, masked=True)
+            est = compat.stage_to_mesh(sg.deg, mesh).reshape(-1)
+            everyone = torch.ones_like(est, dtype=torch.bool)
+            phase_s["stage"] += time.perf_counter() - t_stage
+            rounds, converged = 0, False
+            t_conv = time.perf_counter()
+            while rounds < cap:
+                t_r = time.perf_counter() if rec.active else 0.0
+                with _trace.span("kcore.round", round=rounds) as rsp:
+                    new_est, changed, recv, m = superstep(est, everyone)
+                    rounds += 1
+                    m, c, a = torch.stack([m, changed.sum(), recv.sum()]).tolist()
+                    if not c:
+                        converged = True
+                        break
+                    msgs.append(m)
+                    changed_counts.append(c)
+                    active.append(a)
+                    rsp.set(messages=m, changed=c)
+                    if rec.active:
+                        rec.record_round(
+                            a, m, c, est=compat.fetch_replicated(new_est, mesh)[: g.n],
+                            prev_est=compat.fetch_replicated(est, mesh)[: g.n],
+                            host_s=time.perf_counter() - t_r, dispatch=plan.kind)
+                    est = new_est
+            phase_s["converge"] = time.perf_counter() - t_conv
+            core = compat.fetch_replicated(est, mesh)[: g.n].astype(np.int32)
+        _sp.set(rounds=rounds, converged=converged,
+                messages=int(np.asarray(msgs, np.int64).sum()))
+    stats = MessageStats(np.asarray(msgs, np.int64),
+                         np.asarray(active[: len(msgs)], np.int64),
+                         np.asarray(changed_counts[: len(msgs)], np.int64))
+    if rec.active:
+        rec.end_run(converged=converged, messages=int(stats.total_messages))
+    return KCoreResult(core=core, rounds=rounds, converged=converged, stats=stats,
                        recompiles=_build.build_count() - builds0,
                        compile_s=_build.build_seconds() - bsecs0,
                        phase_s=phase_s, dispatch=plan.kind)

@@ -1,10 +1,14 @@
 """Fused convergence runtime: the round loop with its bills on the device.
 
 The port of ``repro.core.runtime`` (``FusedOutcome``, ``_finish``,
-``fused_converge_dense``). ``kcore_decompose(..., fused=True)`` runs the
-paper's from-scratch decomposition through here (seed = degrees, frontier =
-everyone). Per round the loop keeps messages, changed and receiver counts in
-device buffers and reads back one two-flag tensor; the host reconstructs the
+``fused_converge_dense``, ``fused_converge_sharded``).
+``kcore_decompose(..., fused=True)`` and ``kcore_decompose_sharded(...,
+fused=True)`` run the paper's from-scratch decomposition through here (seed
+= degrees, frontier = everyone), the streaming engine each batch's
+re-convergence (seed = warm-start bound, frontier = the batch's touched
+set). Per round the loop keeps messages, changed and receiver counts in
+device buffers and reads back the round's changed and receiver counts
+(summed over the processes of a mesh); the host reconstructs the
 exact per-round ``MessageStats`` at the end, bit-equal to what the host loop
 appends round by round. The loop is driven from the host: a CUDA graph or a
 persistent kernel that keeps the stop test on the device is later work.
@@ -25,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import dispatch as _dispatch
-from repro_torch.core.kcore import fused_round_stats
+from repro_torch.core.kcore import _fused_sharded_convergence, fused_round_stats
+from repro_torch.distribution import compat
 from repro_torch.kernels import _build
 from repro_torch.obs import flight, trace
 
@@ -106,6 +111,19 @@ def _finish(span, raw, t_dev, builds0, bsecs0, est_of, dispatch, frontier1=None,
     return outcome
 
 
+def _flight_inputs(seed, active, frontier1):
+    """The flight recorder's round-1 frontier and a host copy of the seed,
+    resolved before any device work: the accounting frontier (callers pass
+    it when their loop's activation differs from the accounting convention)
+    and the seed for the aggregate drop histogram. ``(frontier1, None)``
+    when the recorder is off."""
+    if not flight.recorder().active:
+        return frontier1, None
+    if frontier1 is None:
+        frontier1 = int(np.asarray(active).sum())
+    return frontier1, np.asarray(seed, np.int64).copy()
+
+
 def fused_converge_dense(seed, active, src, dst, arc_mask, deg, *, n, n_iters, max_rounds,
                          device=None, ell=None, frontier1=None, row_ptr=None):
     """Single-device fused convergence over arc arrays, from an arbitrary
@@ -124,15 +142,7 @@ def fused_converge_dense(seed, active, src, dst, arc_mask, deg, *, n, n_iters, m
     builds0, bsecs0 = _build.build_count(), _build.build_seconds()
     plan = _dispatch.resolve_plan(device)
     dev = plan.device
-    # flight bookkeeping resolved up front: the accounting round-1 frontier
-    # and a host copy of the seed for the aggregate drop histogram. Zero
-    # work when the recorder is disabled.
-    rec = flight.recorder()
-    seed_np = None
-    if rec.active:
-        if frontier1 is None:
-            frontier1 = int(np.asarray(active).sum())
-        seed_np = np.asarray(seed, np.int64).copy()
+    frontier1, seed_np = _flight_inputs(seed, active, frontier1)
     with trace.span("fused-converge", n=n, max_rounds=max_rounds, dispatch=plan.kind) as span:
         with trace.span("stage"):
             t0 = time.perf_counter()
@@ -162,6 +172,63 @@ def fused_converge_dense(seed, active, src, dst, arc_mask, deg, *, n, n_iters, m
                 builds0,
                 bsecs0,
                 lambda: est_t.cpu().numpy().astype(np.int32),
+                plan.kind,
+                frontier1=frontier1,
+                seed=seed_np,
+                stage_s=stage_s,
+            )
+
+
+def fused_converge_sharded(seed, active, sg, mesh, axis_names, *, n, n_iters, max_rounds,
+                           frontier1=None):
+    """Fused convergence with the masked sharded superstep inside, on the
+    mesh's device.
+
+    ``sg`` is a ``graph.partition.ShardedGraph`` over the mesh's shards
+    (``shard_graph`` for the static engine, ``shard_arc_arrays`` over the
+    live CSR arcs for the streaming engine); ``seed``/``active`` are plain
+    (n,) host vectors, padded to the shard layout here. On a mesh across
+    processes every rank calls this with the same graph and host vectors:
+    each stages only its own shards (``compat.stage_to_mesh``), the
+    per-round counts are summed over the ranks, and the estimates come back
+    through ``compat.fetch_replicated``. Same ``FusedOutcome`` as
+    ``fused_converge_dense``; accounting is bit-equal to every single-process
+    mode.
+    """
+    from repro_torch.core import dispatch as _dispatch
+
+    builds0, bsecs0 = _build.build_count(), _build.build_seconds()
+    plan = _dispatch.resolve_plan(mesh.device)
+    frontier1, seed_np = _flight_inputs(seed, active, frontier1)
+    with trace.span("fused-converge", n=n, max_rounds=max_rounds, dispatch=plan.kind,
+                    mesh_devices=sg.n_shards,
+                    multiprocess=compat.is_multiprocess_mesh(mesh)) as span:
+        with trace.span("stage"):
+            t0 = time.perf_counter()
+            st = _dispatch.stage_shards(sg, mesh, axis_names)
+            shape = (sg.n_shards, sg.verts_per_shard)
+            est_p = np.zeros(sg.n_pad, np.int32)
+            est_p[:n] = seed
+            act_p = np.zeros(sg.n_pad, bool)
+            act_p[:n] = active
+            est = compat.stage_to_mesh(est_p.reshape(shape), mesh).reshape(-1)
+            act = compat.stage_to_mesh(act_p.reshape(shape), mesh).reshape(-1)
+            stage_s = time.perf_counter() - t0
+        with trace.span("device-converge"):
+            t0 = time.perf_counter()
+            est_t, r, stop, final_act, mb, cb, rb = _fused_sharded_convergence(
+                st, n_iters, max_rounds)(est, act)
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+            t_dev = time.perf_counter() - t0
+        with trace.span("stats-reconstruct"):
+            return _finish(
+                span,
+                (r, stop, final_act, mb, cb, rb),
+                t_dev,
+                builds0,
+                bsecs0,
+                lambda: compat.fetch_replicated(est_t, mesh)[:n].astype(np.int32),
                 plan.kind,
                 frontier1=frontier1,
                 seed=seed_np,

@@ -1,9 +1,10 @@
 """Vertex-range partitioning of a src-sorted graph (numpy, host-side).
 
 The port's copy of ``repro.graph.partition``, which has no JAX in it. Layout
-contract (the block-Gauss-Seidel sweep of ``core/kcore.py`` uses its
-geometry; the sharded engines of ROADMAP Queue A item 10 will use the
-arrays):
+contract (the sharded engines use the arrays: ``core/kcore.py``'s
+``kcore_decompose_sharded`` through ``shard_graph``, the streaming engine's
+``sharded`` modes through ``shard_arc_arrays``; the block-Gauss-Seidel sweep
+uses the geometry):
 
   * Vertices are partitioned into ``n_shards`` contiguous ranges of equal
     (padded) size V = n_pad / n_shards; shard d owns vertices

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --scale 0.2
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph SPR --scale 1.0 --fused --json
+    PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph ba --mesh 4 --fused --device cpu
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph chain --n 2000 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --mode block_gs
     PYTHONPATH=src python -m repro_torch.launch.kcore_run --graph FC --backend ell --device cpu
@@ -20,7 +21,10 @@ plain PyTorch versions run); with no card and no ``--device cpu`` it fails.
 ``--fused`` keeps the per-round bills on the device (core/runtime.py),
 bit-equal to the host loop (jacobi only). ``--mode block_gs`` sweeps 8
 vertex blocks in order within a round; ``--backend ell|ell_pallas`` names
-the ELL route, which every jacobi backend of the port runs.
+the ELL route, which every jacobi backend of the port runs. ``--mesh N``
+runs the sharded engine (``core.kcore.kcore_decompose_sharded``) on an
+N-shard ("data",) mesh held by this process on ``--device``, the host loop
+or, with ``--fused``, the fused loop; jacobi/segment only.
 ``--out-of-core`` cycles arc blocks from a temporary on-disk store through
 the card one at a time (``core/outofcore.py``), the block count planned from
 ``--mem-budget`` or forced by ``--blocks``; the report gains its
@@ -56,7 +60,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="cuda (default) runs the CUDA kernels and fails without a card; "
         "cpu runs their plain PyTorch versions",
     )
-    ap.add_argument("--mesh", type=int, default=0, metavar="N", help="not ported yet")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="run the sharded engine on an N-shard ('data',) mesh held by this "
+                    "process on --device")
     ap.add_argument(
         "--out-of-core",
         action="store_true",
@@ -119,15 +125,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.metrics_out:
         args.metrics = True
+    if args.mesh and (args.mode != "jacobi" or args.backend != "segment"):
+        ap.error("--mesh supports --mode jacobi --backend segment only")
     if args.out_of_core and (args.mesh or args.fused or args.mode != "jacobi"
                              or args.backend != "segment"):
         ap.error("--out-of-core is its own engine: jacobi/segment only, "
                  "no --mesh/--fused")
     if (args.mem_budget or args.blocks) and not args.out_of_core:
         ap.error("--mem-budget/--blocks require --out-of-core")
-    if args.mesh:
-        ap.error("--mesh is not ported yet: ROADMAP.md Queue A item 10 "
-                 "(sharded and multi-process paths)")
     return args
 
 
@@ -152,7 +157,7 @@ def decompose_report(g, args, core_ref=None):
 
     from repro_torch.core.bz import bz_core_numbers
     from repro_torch.core.cost_model import DATACENTER, INTERNET, TPU_POD, simulate_runtime
-    from repro_torch.core.kcore import KCoreConfig, kcore_decompose
+    from repro_torch.core.kcore import KCoreConfig, kcore_decompose, kcore_decompose_sharded
     from repro_torch.core.messages import heartbeat_overhead, work_bound
     from repro_torch.core.outofcore import outofcore_decompose
     from repro_torch.platform import resolve_device
@@ -162,6 +167,11 @@ def decompose_report(g, args, core_ref=None):
     if args.out_of_core:
         res = outofcore_decompose(g, mem_budget=args.mem_budget, n_blocks=args.blocks,
                                   device=dev)
+    elif args.mesh:
+        from repro_torch.distribution.compat import make_mesh
+
+        mesh = make_mesh((args.mesh,), ("data",), device=dev)
+        res = kcore_decompose_sharded(g, mesh, ("data",), fused=args.fused)
     else:
         res = kcore_decompose(g, KCoreConfig(mode=args.mode, backend=args.backend),
                               fused=args.fused, device=dev)
@@ -182,7 +192,7 @@ def decompose_report(g, args, core_ref=None):
         "backend": args.backend,
         "fused": args.fused,
         "dispatch": res.dispatch,
-        "mesh": 1,
+        "mesh": args.mesh or 1,
         "correct_vs_BZ": ok,
         "rounds": res.rounds,
         "converged": res.converged,

@@ -5,6 +5,8 @@ query load (the port of ``repro.launch.kcore_serve``).
     PYTHONPATH=src python -m repro_torch.launch.kcore_serve --graph FC \\
         --batches 10 --churn 0.01 --queries 100000 --verify
     PYTHONPATH=src python -m repro_torch.launch.kcore_serve --graph ba --n 500 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.kcore_serve --graph ba --n 500 --mesh 2 \
+        --frontier sharded --device cpu --verify
 
     # temporal replay: slide a window over a timestamped event stream
     PYTHONPATH=src python -m repro_torch.launch.kcore_serve --events snap:FC \\
@@ -40,8 +42,10 @@ one drew.
 
 Runs on the CUDA card unless ``--device cpu`` is given (then the kernels'
 plain PyTorch versions run); with no card and no ``--device cpu`` it fails.
-``--mesh`` and ``--frontier sharded`` are not ported yet (ROADMAP.md Queue A
-item 10).
+--mesh N runs the maintenance engine mesh-native on an N-shard ("data",)
+mesh held by this process on ``--device`` (``dense`` becomes ``sharded``):
+the initial decomposition and the per-batch supersteps run on the shards.
+Cores and message counts equal the single-device engine's on any mesh.
 """
 
 from __future__ import annotations
@@ -65,7 +69,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["dense", "compact", "sharded", "fused", "auto"],
                     help="engine execution mode; fused = the batch's rounds in one "
                     "device-resident loop")
-    ap.add_argument("--mesh", type=int, default=0, metavar="N", help="not ported yet")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="run mesh-native on an N-shard ('data',) mesh held by this process "
+                    "on --device. 0 = single device (default)")
     ap.add_argument("--verify", action="store_true",
                     help="check vs the BZ oracle every tick (slow)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -107,14 +113,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--flight", default=None, metavar="OUT.json",
                     help="enable the convergence flight recorder + invariant monitor and "
                     "dump the round ring, watch timelines and health verdict as JSON")
-    args = ap.parse_args(argv)
-    refused = [(args.mesh, "--mesh"), (args.frontier == "sharded", "--frontier sharded")]
-    for is_set, flag in refused:
-        if is_set:
-            from repro_torch.streaming.engine import ROADMAP_SHARDED
-
-            ap.error(f"{flag} is not ported yet: {ROADMAP_SHARDED}")
-    return args
+    return ap.parse_args(argv)
 
 
 def _fmt_stats(stats: dict) -> dict:
@@ -241,7 +240,7 @@ def _serve_reads(front, server, reqs) -> float:
     return time.perf_counter() - t0
 
 
-def replay_serve(args, dev, httpd=None) -> None:
+def replay_serve(args, dev, mesh, httpd=None) -> None:
     """Temporal replay loop: window advances + query load + as-of probes."""
     import numpy as np
 
@@ -252,7 +251,8 @@ def replay_serve(args, dev, httpd=None) -> None:
     log = build_event_log(args)
     t0 = time.perf_counter()
     weng = WindowedKCoreEngine(log, args.window, args.stride, by=args.by,
-                               config=StreamingConfig(frontier=args.frontier), device=dev)
+                               config=StreamingConfig(frontier=args.frontier), mesh=mesh,
+                               device=dev)
     server = KCoreServer(windowed=weng, asof_capacity=args.asof_capacity)
     if httpd is not None:
         httpd.add_registry(server.metrics)
@@ -261,7 +261,7 @@ def replay_serve(args, dev, httpd=None) -> None:
     stop = _install_stop()
     print(f"# events={args.events} n={log.n} log_events={len(log)} "
           f"adds={log.num_adds} window={args.window} stride={args.stride} "
-          f"by={args.by} mesh=1 frontier={args.frontier} "
+          f"by={args.by} mesh={args.mesh or 1} frontier={args.frontier} "
           f"init_wall_s={time.perf_counter() - t0:.2f} device={dev}", flush=True)
 
     print("tick,t_hi,m,inserted,deleted,inc_messages,scratch_messages,"
@@ -301,7 +301,7 @@ def replay_serve(args, dev, httpd=None) -> None:
     _finish_obs(args, server)
 
 
-def churn_serve(args, dev, httpd=None) -> None:
+def churn_serve(args, dev, mesh, httpd=None) -> None:
     """Static loop: a churn batch, the query load and the scratch bill a tick."""
     from repro_torch.core.bz import bz_core_numbers
     from repro_torch.core.kcore import kcore_decompose
@@ -310,10 +310,10 @@ def churn_serve(args, dev, httpd=None) -> None:
 
     g = build_graph(args, generators)
     t0 = time.perf_counter()
-    server = KCoreServer(g, StreamingConfig(frontier=args.frontier), device=dev)
+    server = KCoreServer(g, StreamingConfig(frontier=args.frontier), mesh=mesh, device=dev)
     if httpd is not None:
         httpd.add_registry(server.metrics)
-    print(f"# graph={args.graph} n={g.n} m={g.m} mesh=1 "
+    print(f"# graph={args.graph} n={g.n} m={g.m} mesh={args.mesh or 1} "
           f"frontier={args.frontier} "
           f"init_messages={server.engine.init_result.stats.total_messages} "
           f"init_wall_s={time.perf_counter() - t0:.2f} device={dev}", flush=True)
@@ -391,6 +391,13 @@ def main(argv=None) -> None:
 
     # fail before any work when the card is wanted and missing
     dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.distribution.compat import make_mesh
+
+        mesh = make_mesh((args.mesh,), ("data",), device=dev)
+        if args.frontier == "dense":
+            args.frontier = "sharded"
 
     # live observability starts BEFORE the graph and the initial
     # decomposition, so external pollers can reach /healthz during startup
@@ -412,9 +419,9 @@ def main(argv=None) -> None:
         trace.enable()
     try:
         if args.events:
-            replay_serve(args, dev, httpd=httpd)
+            replay_serve(args, dev, mesh, httpd=httpd)
         else:
-            churn_serve(args, dev, httpd=httpd)
+            churn_serve(args, dev, mesh, httpd=httpd)
     finally:
         if httpd is not None:
             httpd.stop()

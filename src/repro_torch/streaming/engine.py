@@ -37,14 +37,23 @@ Frontier modes (all produce identical estimates and identical bills):
     the device and runs the h-index over it alone (``_compact_kernel``);
   * ``fused``   — the batch's re-convergence through the fused runtime
     (``core.runtime.fused_converge_dense``), per-round bills on the device;
+  * ``sharded`` — the masked superstep over a mesh's shards
+    (``core.kcore.make_sharded_superstep(..., masked=True)``): the live arcs
+    laid out by ``graph.partition.shard_arc_arrays`` (already src-sorted,
+    so no sort), one est all_gather plus one 1-bit changed all_gather a
+    round;
+  * ``fused``   — on a mesh, ``fused_sharded``: the batch's re-convergence
+    through ``core.runtime.fused_converge_sharded``;
   * ``auto``    — ``compact`` below ``compact_threshold`` of the vertices
-    in the initial frontier, else ``fused``.
+    in the initial frontier, else ``fused`` (``fused_sharded`` on a mesh).
 
-``sharded`` and a mesh (``fused_sharded``) raise ``NotImplementedError``:
-ROADMAP.md Queue A item 10. On CUDA every segment sum of the seed and the
-rounds runs the ``segment_sum`` kernel; on the CPU its plain version. The
-segment-max and scatter-max of the upper bound are plain PyTorch, as the
-reference's are XLA.
+With a mesh the initial decomposition is the sharded static engine's. The
+shard blocks are padded to powers of two and the arc block never shrinks
+over a stream (``shard_A_floor``), the reference's geometry, so a sharded
+engine's checkpoint crosses between the packages with the same leaves. On
+CUDA every segment sum of the seed and the rounds runs the ``segment_sum``
+kernel; on the CPU its plain version. The segment-max and scatter-max of
+the upper bound are plain PyTorch, as the reference's are XLA.
 
 Each loop's stop test (the upper bound's passes, propagations and peels;
 the rounds) is one value read back to the host: ``BatchResult.flag_reads``.
@@ -61,10 +70,14 @@ import torch
 from repro_torch.core import dispatch as _dispatch
 from repro_torch.core.cost_model import SeedCostModel, choose_seed
 from repro_torch.core.kcore import (KCoreConfig, _bs_iters, _hindex_by_bsearch, _receivers,
-                                    kcore_decompose, masked_round_segment)
+                                    kcore_decompose, kcore_decompose_sharded,
+                                    make_sharded_superstep, masked_round_segment)
 from repro_torch.core.messages import MessageStats
-from repro_torch.core.runtime import fused_converge_dense
+from repro_torch.core.runtime import fused_converge_dense, fused_converge_sharded
+from repro_torch.distribution import compat
+from repro_torch.graph.padding import next_pow2 as _next_pow2
 from repro_torch.graph.padding import round_up as _round_up
+from repro_torch.graph.partition import shard_arc_arrays
 from repro_torch.graph.structs import Graph
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_sum.ops import segment_sum
@@ -74,11 +87,6 @@ from repro_torch.platform import resolve_device
 from repro_torch.streaming.delta import ChurnDelta, DeltaResult, EdgeBatch, PatchableCSR
 
 FRONTIER_MODES = ("dense", "compact", "sharded", "fused", "auto")
-# the reference engine's padded live-arc and per-shard arc floors: the port
-# pads and shards nothing, so it only carries them through state_dict, whose
-# leaves are then the reference's and a checkpoint crosses between packages
-REF_FLOORS = (("arc_pad_hwm", 1), ("shard_A_floor", 0))
-ROADMAP_SHARDED = "ROADMAP.md Queue A item 10 (sharded and multi-process paths)"
 
 
 # ---------------------------------------------------------------------- #
@@ -292,13 +300,20 @@ def compact_subproblem(est, active, src, dst):
             est.index_select(0, dst[arc_sel]))
 
 
-def _refuse_sharded(config: StreamingConfig, mesh) -> None:
+def _resolve_mesh(config: StreamingConfig, mesh, axis_names, device):
+    """The engine's ``(mesh, axis_names, device)``: ``frontier="sharded"``
+    without a mesh gets a one-shard mesh, and a mesh's device is the
+    engine's."""
     if config.frontier not in FRONTIER_MODES:
         raise ValueError(f"unknown frontier mode {config.frontier!r}")
-    if config.frontier == "sharded" or mesh is not None:
-        raise NotImplementedError(
-            f"the sharded frontier modes (sharded, and fused_sharded on a mesh) are not "
-            f"ported yet: {ROADMAP_SHARDED}")
+    if mesh is None:
+        dev = resolve_device(device)
+        if config.frontier == "sharded":
+            mesh, axis_names = compat.make_mesh((1,), ("data",), device=dev), ("data",)
+        return mesh, tuple(axis_names), dev
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh, tuple(axis_names), mesh.device
 
 
 # ---------------------------------------------------------------------- #
@@ -312,24 +327,34 @@ class StreamingKCoreEngine:
     ``device``); every ``apply_batch`` then re-converges incrementally from
     the previous fixpoint. ``self.core`` is exact after every batch.
     ``device`` defaults to CUDA and raises without a card; pass
-    ``device="cpu"`` for the kernels' plain versions. ``mesh`` is the
-    reference's argument for the sharded modes, which are not ported yet.
+    ``device="cpu"`` for the kernels' plain versions. With ``mesh`` (a
+    ``distribution.compat.Mesh`` over ``axis_names``) the engine runs on the
+    mesh's device, the initial decomposition is the sharded static engine's
+    (for the ``sharded``, ``fused`` and ``auto`` frontiers), and batches
+    run mesh-native; a mesh never changes an answer.
     """
 
     def __init__(self, g: Graph, config: StreamingConfig = StreamingConfig(),
                  kcore_config: KCoreConfig = KCoreConfig(),
-                 mesh=None, *, device=None):
-        _refuse_sharded(config, mesh)
+                 mesh=None, axis_names=("data",), *, device=None):
+        self.mesh, self.axis_names, self.device = _resolve_mesh(config, mesh, axis_names,
+                                                                device)
         self.config = config
-        self.device = resolve_device(device)
         self._csr = PatchableCSR(g, slack=config.slack,
                                  min_slack=config.min_slack,
                                  compact_dead_frac=config.compact_dead_frac)
         self._graph_cache: Graph | None = g
-        # the binary-search depth only grows over a stream (see apply_batch)
+        # high-water marks, the reference's: the binary-search depth (see
+        # apply_batch), the live-arc count padded to a power of two where the
+        # reference pads its dense arrays, and the sharded modes' arc block
         self._n_iters_hwm = 0
-        self._ref_floors = dict(REF_FLOORS)
-        init = kcore_decompose(g, kcore_config, device=self.device)
+        self._arc_pad_hwm = 1
+        self._shard_A_floor = 0
+        if self.mesh is not None and config.frontier in ("sharded", "fused", "auto"):
+            init = kcore_decompose_sharded(g, self.mesh, self.axis_names,
+                                           max_rounds=kcore_config.max_rounds)
+        else:
+            init = kcore_decompose(g, kcore_config, device=self.device)
         self.core = init.core.astype(np.int32)
         self.init_result = init
         self.batches_applied = 0
@@ -358,37 +383,37 @@ class StreamingKCoreEngine:
     # ------------------------------------------------------------------ #
     def state_dict(self) -> dict:
         """The engine's exact state as numpy arrays: cores, the full
-        PatchableCSR slot state, the binary-search depth's high-water mark,
-        and the reference's two carried floors (``REF_FLOORS``): the
+        PatchableCSR slot state and the three high-water marks, under the
         reference engine's keys, so either package's engine restores it.
         ``from_state_dict`` continues the stream from it."""
         return {
             "core": np.asarray(self.core, np.int32),
             "batches_applied": np.asarray(self.batches_applied, np.int64),
             "csr": self._csr.state_dict(),
+            "arc_pad_hwm": np.asarray(self._arc_pad_hwm, np.int64),
             "n_iters_hwm": np.asarray(self._n_iters_hwm, np.int64),
-            **{k: np.asarray(v, np.int64) for k, v in self._ref_floors.items()},
+            "shard_A_floor": np.asarray(self._shard_A_floor, np.int64),
         }
 
     @classmethod
     def from_state_dict(cls, state: dict,
                         config: StreamingConfig = StreamingConfig(),
-                        mesh=None, *, device=None
+                        mesh=None, axis_names=("data",), *, device=None
                         ) -> "StreamingKCoreEngine":
         """Warm-restart an engine from ``state_dict`` output. No
         decomposition runs: the restored cores ARE the fixpoint of the
         restored CSR."""
-        _refuse_sharded(config, mesh)
         eng = cls.__new__(cls)
+        eng.mesh, eng.axis_names, eng.device = _resolve_mesh(config, mesh, axis_names, device)
         eng.config = config
-        eng.device = resolve_device(device)
         eng._csr = PatchableCSR.from_state(
             {k: np.asarray(v) for k, v in state["csr"].items()},
             slack=config.slack, min_slack=config.min_slack,
             compact_dead_frac=config.compact_dead_frac)
         eng._graph_cache = None
         eng._n_iters_hwm = int(np.asarray(state.get("n_iters_hwm", 0)))
-        eng._ref_floors = {k: int(np.asarray(state.get(k, d))) for k, d in REF_FLOORS}
+        eng._arc_pad_hwm = int(np.asarray(state.get("arc_pad_hwm", 1)))
+        eng._shard_A_floor = int(np.asarray(state.get("shard_A_floor", 0)))
         eng.core = np.asarray(state["core"], np.int32)
         eng.init_result = None
         eng.batches_applied = int(np.asarray(state["batches_applied"]))
@@ -397,17 +422,56 @@ class StreamingKCoreEngine:
     # ------------------------------------------------------------------ #
     def _resolve_mode(self, n: int, active: np.ndarray) -> str:
         """Config frontier -> the execution mode this batch runs in: ``auto``
-        picks compact below the frontier-size threshold, else fused."""
+        picks compact below the frontier-size threshold, else fused; fused
+        is ``fused_sharded`` on a mesh."""
         mode = self.config.frontier
         if mode == "auto":
             frac = float(active.sum()) / max(n, 1)
-            return "compact" if frac <= self.config.compact_threshold else "fused"
+            if frac <= self.config.compact_threshold:
+                return "compact"
+            mode = "fused"
+        if mode == "fused" and self.mesh is not None:
+            return "fused_sharded"
         return mode
+
+    def _note_padded_arcs(self, k: int) -> None:
+        """Raise ``arc_pad_hwm`` where the reference pads its ``k`` live arcs
+        for a dense program (the tight seed, the dense and fused modes)."""
+        self._arc_pad_hwm = max(self._arc_pad_hwm, _next_pow2(max(k, 1)))
+
+    def _shard_slots(self, n: int, src_live: np.ndarray, dst_live: np.ndarray):
+        """The live arcs laid over the mesh (src-sorted by construction — no
+        sort), blocks padded to powers of two with the arc block's
+        high-water floor applied."""
+        sg = shard_arc_arrays(n, src_live, dst_live, np.ones(src_live.size, bool),
+                              self._csr.deg, compat.shard_count(self.mesh, self.axis_names),
+                              pow2=True, min_arcs_per_shard=self._shard_A_floor)
+        self._shard_A_floor = max(self._shard_A_floor, sg.arcs_per_shard)
+        return sg
+
+    def _sharded_step(self, n: int, n_iters: int, src_live, dst_live):
+        """The per-round step of the ``sharded`` mode: the masked sharded
+        superstep over this process's shards, its outputs gathered back to
+        (n,) vectors."""
+        mesh = self.mesh
+        sg = self._shard_slots(n, src_live, dst_live)
+        superstep, _ = make_sharded_superstep(sg, mesh, self.axis_names, n_iters, masked=True)
+        V, pad = sg.verts_per_shard, sg.n_pad - n
+        lo, hi = mesh.shard_offset * V, (mesh.shard_offset + mesh.local_shards) * V
+
+        def step(est, active):
+            est_l = torch.cat([est, est.new_zeros(pad)])[lo:hi]
+            act_l = torch.cat([active, active.new_zeros(pad)])[lo:hi]
+            new_l, ch_l, recv_l, _msgs = superstep(est_l, act_l)
+            return tuple(compat.all_gather(t, mesh)[:n] for t in (new_l, ch_l, recv_l))
+
+        return step
 
     @staticmethod
     def _make_step(mode: str, arcs: tuple, n_iters: int):
         """The per-round ``step(est, active) -> (new_est, changed, recv)``
-        of one batch over the staged live arcs. Both are exact-equal."""
+        of one batch over the staged live arcs (``dense`` or ``compact``);
+        every mode is exact-equal."""
         src, dst, row_ptr = arcs
         if mode == "dense":
             return lambda est, active: masked_round_segment(est, src, dst, row_ptr, None, active,
@@ -466,11 +530,13 @@ class StreamingKCoreEngine:
             t_stage = time.perf_counter()
             # the live arcs only, still src-sorted: row-major slot order
             # survives boolean filtering
-            arcs = _dispatch.stage_arcs(csr.src[csr.live], csr.dst[csr.live], n, dev)
+            src_live, dst_live = csr.src[csr.live], csr.dst[csr.live]
+            arcs = _dispatch.stage_arcs(src_live, dst_live, n, dev)
             stage_s = time.perf_counter() - t_stage
             if seed_choice.strategy == "degree":
                 U = deg64.copy()
             else:
+                self._note_padded_arcs(src_live.size)
                 U, reads = _upper_bound(arcs, None, csr.deg, old_core_ext, delta.inserted)
             seed = np.minimum(U, deg64).astype(np.int32)
             region = U > old_core_ext
@@ -519,11 +585,17 @@ class StreamingKCoreEngine:
 
         t_conv = time.perf_counter()
         with _trace.span("converge", mode=mode):
-            if mode == "fused":
+            if mode in ("fused", "fused_sharded"):
                 if active.any():
-                    outcome = fused_converge_dense(
-                        seed, active, arcs[0], arcs[1], None, csr.deg, row_ptr=arcs[2], n=n,
-                        n_iters=n_iters, max_rounds=cap, device=dev)
+                    if mode == "fused":
+                        self._note_padded_arcs(src_live.size)
+                        outcome = fused_converge_dense(
+                            seed, active, arcs[0], arcs[1], None, csr.deg, row_ptr=arcs[2], n=n,
+                            n_iters=n_iters, max_rounds=cap, device=dev)
+                    else:
+                        outcome = fused_converge_sharded(
+                            seed, active, self._shard_slots(n, src_live, dst_live), self.mesh,
+                            self.axis_names, n=n, n_iters=n_iters, max_rounds=cap)
                     core, rounds = outcome.est, outcome.rounds
                     converged = outcome.converged
                     reads += rounds
@@ -533,7 +605,10 @@ class StreamingKCoreEngine:
                 else:
                     core, converged = np.asarray(seed, np.int32), True
             else:
-                step = self._make_step(mode, arcs, n_iters)
+                if mode == "dense":
+                    self._note_padded_arcs(src_live.size)
+                step = (self._sharded_step(n, n_iters, src_live, dst_live) if mode == "sharded"
+                        else self._make_step(mode, arcs, n_iters))
                 est = torch.as_tensor(seed, device=dev)
                 act = torch.as_tensor(active, device=dev)
                 deg_t = torch.as_tensor(csr.deg, device=dev)

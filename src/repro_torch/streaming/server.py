@@ -34,7 +34,7 @@ A server is constructed over a static Graph (churn arrives as explicit
 ``advance_window`` slides the window and every boundary's core vector is
 checkpointed into the as-of ring). ``state_dict``/``load_state_dict`` keep
 the reference's layout, so a checkpoint crosses between the packages.
-``mesh`` raises ``NotImplementedError`` (ROADMAP.md Queue A item 10).
+``mesh``/``axis_names`` run the static server's engine mesh-native.
 """
 
 from __future__ import annotations
@@ -202,17 +202,17 @@ class KCoreServer:
     def __init__(self, g: Graph | None = None,
                  config: StreamingConfig = StreamingConfig(),
                  kcore_config: KCoreConfig = KCoreConfig(),
-                 mesh=None,
+                 mesh=None, axis_names=("data",),
                  windowed: WindowedKCoreEngine | None = None,
                  asof_capacity: int = 16, *, device=None):
         if (g is None) == (windowed is None):
             raise ValueError("pass exactly one of g / windowed")
         if windowed is not None:
-            if (mesh is not None or device is not None
+            if (mesh is not None or tuple(axis_names) != ("data",) or device is not None
                     or config != StreamingConfig()
                     or kcore_config != KCoreConfig()):
                 raise ValueError(
-                    "windowed mode: config/kcore_config/mesh/device belong to the "
+                    "windowed mode: config/kcore_config/mesh/axis_names/device belong to the "
                     "WindowedKCoreEngine — pass them to its constructor, the server "
                     "would silently ignore them")
             self.windowed = windowed
@@ -220,7 +220,7 @@ class KCoreServer:
         else:
             self.windowed = None
             self.engine = StreamingKCoreEngine(g, config, kcore_config, mesh=mesh,
-                                               device=device)
+                                               axis_names=axis_names, device=device)
         self.asof_ring = CoreCheckpointRing(asof_capacity)
         self.queries_served = 0
         self.clients_answered = 0     # total vertex ids answered
@@ -459,5 +459,6 @@ class KCoreServer:
                 raise ValueError("checkpoint was taken from a windowed "
                                  "server; this one is static")
             self.engine = StreamingKCoreEngine.from_state_dict(
-                state["engine"], config=self.engine.config, device=self.engine.device)
+                state["engine"], config=self.engine.config, mesh=self.engine.mesh,
+                axis_names=self.engine.axis_names, device=self.engine.device)
         self.asof_ring.load_state(state["asof"])

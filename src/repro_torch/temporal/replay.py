@@ -180,7 +180,7 @@ def check_step(weng: WindowedKCoreEngine, ws: WindowStep) -> bool:
 def replay(log: EventLog, window, stride, by: str = "count",
            config: StreamingConfig = StreamingConfig(),
            kcore_config: KCoreConfig = KCoreConfig(),
-           mesh=None, oracle_every: int = 0, track=None,
+           mesh=None, axis_names=("data",), oracle_every: int = 0, track=None,
            max_steps: int | None = None, *, device=None) -> ReplayTrajectory:
     """Replay a whole event stream through a sliding window.
 
@@ -188,10 +188,11 @@ def replay(log: EventLog, window, stride, by: str = "count",
     (0 = never). ``track`` selects vertices whose core time series is kept
     per step: an int means "that many evenly spaced ids", an array means
     those ids, None tracks nothing. ``device`` defaults to CUDA and raises
-    without a card; ``mesh`` raises (ROADMAP.md Queue A item 10).
+    without a card; ``mesh``/``axis_names`` go to the maintenance engine.
     """
     weng = WindowedKCoreEngine(log, window, stride, by=by, config=config,
-                               kcore_config=kcore_config, mesh=mesh, device=device)
+                               kcore_config=kcore_config, mesh=mesh, axis_names=axis_names,
+                               device=device)
     if track is None:
         tracked = np.zeros(0, np.int64)
     elif np.isscalar(track):

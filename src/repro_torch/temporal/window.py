@@ -22,9 +22,8 @@ Two window kinds, both with configurable stride:
 
 The vertex universe is fixed to ``log.n`` up front so core vectors are
 comparable across the whole replay (an absent vertex has core 0), and the
-``dense``, ``compact``, ``fused`` and ``auto`` frontier modes pass straight
-through to the maintenance engine; ``sharded`` and a mesh raise
-``NotImplementedError`` (ROADMAP.md Queue A item 10). The window size
+frontier modes (and a mesh, with its ``axis_names``) pass straight through
+to the maintenance engine. The window size
 pre-seeds the CSR's per-row slack (``min_slack``) so a replay-from-empty
 does not compact on every insert. The reference also pre-seeds a padded
 live-arc shape; the port stages the live arcs unpadded and compiles nothing
@@ -45,8 +44,7 @@ from repro_torch.graph.structs import Graph
 from repro_torch.obs import flight as _flight
 from repro_torch.obs import trace as _trace
 from repro_torch.streaming.delta import EdgeBatch, edge_keys
-from repro_torch.streaming.engine import (BatchResult, StreamingConfig, StreamingKCoreEngine,
-                                          _refuse_sharded)
+from repro_torch.streaming.engine import BatchResult, StreamingConfig, StreamingKCoreEngine
 from repro_torch.temporal.events import EventLog
 
 WINDOW_KINDS = ("count", "time")
@@ -74,14 +72,15 @@ class WindowedKCoreEngine:
     """Exact k-core maintenance of a sliding window over an EventLog.
 
     ``device`` defaults to CUDA and raises without a card; pass
-    ``device="cpu"`` for the kernels' plain versions.
+    ``device="cpu"`` for the kernels' plain versions. ``mesh`` and
+    ``axis_names`` go to the maintenance engine (the engine then runs on the
+    mesh's device).
     """
 
     def __init__(self, log: EventLog, window, stride, by: str = "count",
                  config: StreamingConfig = StreamingConfig(),
                  kcore_config: KCoreConfig = KCoreConfig(),
-                 mesh=None, *, device=None):
-        _refuse_sharded(config, mesh)
+                 mesh=None, axis_names=("data",), *, device=None):
         if by not in WINDOW_KINDS:
             raise ValueError(f"unknown window kind {by!r}")
         if window <= 0 or stride <= 0:
@@ -113,7 +112,8 @@ class WindowedKCoreEngine:
                 config = dataclasses.replace(config, min_slack=est)
         self.config = config
         empty = Graph.from_edges(np.zeros((0, 2), np.int64), n=self.n)
-        self.engine = StreamingKCoreEngine(empty, config, kcore_config, device=device)
+        self.engine = StreamingKCoreEngine(empty, config, kcore_config, mesh=mesh,
+                                           axis_names=axis_names, device=device)
         # cursor: hi event index (count) / t_hi timestamp (time); the
         # window starts empty and slides in from the stream's beginning
         self._hi = 0
@@ -184,7 +184,8 @@ class WindowedKCoreEngine:
         device. No decomposition runs — the restored cores are the fixpoint
         of the restored CSR."""
         self.engine = StreamingKCoreEngine.from_state_dict(
-            state["engine"], config=self.config, device=self.engine.device)
+            state["engine"], config=self.config, mesh=self.engine.mesh,
+            axis_names=self.engine.axis_names, device=self.engine.device)
         self._hi = int(np.asarray(state["hi"]))
         self._t_hi = float(np.asarray(state["t_hi"]))
         edges = np.array(np.asarray(state["edges"]), np.int64).reshape(-1, 2)

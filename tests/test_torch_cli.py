@@ -62,13 +62,28 @@ def test_cli_trace_and_flight_outputs(tmp_path):
     assert flight["runs"] == 1 and flight["rounds_recorded"] > 1
 
 
-@pytest.mark.parametrize("argv,item", [
-    (("--mesh", "4"), "item 10"),
-])
-def test_cli_refuses_what_is_not_ported(argv, item):
-    out = _run("repro_torch.launch.kcore_run", "--graph", "FC", "--device", "cpu", *argv)
-    assert out.returncode == 2
-    assert f"ROADMAP.md Queue A {item}" in out.stderr
+@pytest.mark.parametrize("argv,mesh", [
+    (("--graph", "FC", "--scale", "0.05"), 4),
+    (("--graph", "ba", "--n", "400", "--fused"), 2),
+], ids=["FC-mesh4-host", "ba-mesh2-fused"])
+def test_cli_mesh_report_equals_the_jax_cli(argv, mesh):
+    argv = (*argv, "--mesh", str(mesh))
+    port = _report(_run("repro_torch.launch.kcore_run", *argv, "--device", "cpu", "--json"))
+    ref = _report(_run("repro.launch.kcore_run", *argv, "--json"))
+    assert {k: port[k] for k in ACCOUNTING} == {k: ref[k] for k in ACCOUNTING}
+    assert port["correct_vs_BZ"] and port["mesh"] == mesh
+    assert set(port["phase_s"]) - {"stage"} == set(ref["phase_s"])
+
+
+@pytest.mark.parametrize("argv", [("--mesh", "2", "--mode", "block_gs"),
+                                  ("--mesh", "2", "--backend", "ell")])
+def test_cli_mesh_refusals_equal_the_jax_cli(argv):
+    port = _run("repro_torch.launch.kcore_run", "--graph", "chain", "--n", "30", "--device",
+                "cpu", *argv)
+    ref = _run("repro.launch.kcore_run", "--graph", "chain", "--n", "30", *argv)
+    assert port.returncode == ref.returncode == 2
+    assert port.stderr.splitlines()[-1] == ref.stderr.splitlines()[-1]
+    assert "--mesh supports --mode jacobi --backend segment only" in port.stderr
 
 
 # the block-cycling telemetry each package measures on its own clock and process
@@ -395,12 +410,19 @@ def test_serve_cli_drains_on_sigterm_and_serves_http_while_it_runs(tmp_path):
     assert _serve_table(resumed)["rows"] == [want]
 
 
-@pytest.mark.parametrize("argv", [("--mesh", "2"), ("--frontier", "sharded")])
-def test_serve_cli_refuses_what_is_not_ported(argv):
-    out = _run("repro_torch.launch.kcore_serve", "--graph", "ba", "--n", "50", "--device", "cpu",
-               *argv)
-    assert out.returncode == 2
-    assert "ROADMAP.md Queue A item 10" in out.stderr
+@pytest.mark.parametrize("argv", [("--graph", "ba", "--mesh", "2"),
+                                  ("--graph", "ba", "--frontier", "sharded"),
+                                  ("--events", "ba", "--mesh", "2", "--frontier", "fused")],
+                         ids=["mesh", "frontier-sharded", "events-mesh-fused"])
+def test_serve_cli_mesh_rows_equal_the_jax_cli(argv):
+    port = _run("repro_torch.launch.kcore_serve", *argv, *SERVE_ARGS, "--device", "cpu")
+    ref = _run("repro.launch.kcore_serve", *argv, *SERVE_ARGS)
+    got, want = _serve_table(port), _serve_table(ref)
+    assert got == want
+    assert len(got["rows"]) == 3
+    mesh = argv[argv.index("--mesh") + 1] if "--mesh" in argv else "1"
+    assert f"mesh={mesh}" in got["header"]
+    assert {row["mode"] for row in got["rows"]} <= {"sharded", "fused_sharded"}
 
 
 def test_serve_cli_without_a_card_fails_unless_cpu_is_asked():

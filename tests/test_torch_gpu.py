@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-decomposition through the k-core kernels (in memory and out of core, blocks
-cycled through the card), the streaming engine and the
+decomposition through the k-core kernels (in memory, on a mesh of shards,
+and out of core, blocks cycled through the card), the streaming engine (on a
+mesh too) and the
 sliding window on ``segment_sum`` against the CPU (and a window checkpoint
 restored onto the card), the query server and its concurrent front end on
 the card against the CPU and their snapshots, serving through the flash kernel
@@ -209,6 +210,53 @@ def test_streaming_modes_on_the_card_equal_the_cpu(cuda, mode):
             (want.rounds, want.mode, want.region_size, want.seed_strategy)
         for k in ("messages_per_round", "active_per_round", "changed_per_round"):
             np.testing.assert_array_equal(getattr(got.stats, k), getattr(want.stats, k))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["host", "fused"])
+@pytest.mark.parametrize("shape,axes", [((4,), ("data",)), ((2, 2), ("data", "model"))])
+def test_sharded_decomposition_on_the_card_equals_the_cpu(cuda, shape, axes, fused):
+    """The sharded superstep on ``cuda`` (the local shards stacked into one
+    CSR, ``segment_sum`` n_iters + 1 times a round) against ``cpu``."""
+    from repro_torch.core.kcore import _bs_iters, kcore_decompose_sharded
+    from repro_torch.distribution.compat import make_mesh
+
+    g = generators.snap_analogue("EEN", 0.05, seed=0)
+    cpu = kcore_decompose_sharded(g, make_mesh(shape, axes, device="cpu"), axes, fused=fused)
+    sk.launches = 0
+    res = kcore_decompose_sharded(g, make_mesh(shape, axes), axes, fused=fused)
+    assert res.dispatch == "kernel"
+    assert sk.launches == (_bs_iters(g.max_deg) + 1) * res.rounds
+    np.testing.assert_array_equal(res.core, bz_core_numbers(g))
+    np.testing.assert_array_equal(res.core, cpu.core)
+    assert (res.rounds, res.converged) == (cpu.rounds, cpu.converged)
+    for k in ("messages_per_round", "active_per_round", "changed_per_round"):
+        np.testing.assert_array_equal(getattr(res.stats, k), getattr(cpu.stats, k))
+
+
+@pytest.mark.parametrize("mode", ["sharded", "fused", "auto"])
+def test_sharded_streaming_on_the_card_equals_the_cpu(cuda, mode):
+    from repro_torch.distribution.compat import make_mesh
+    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine, random_churn_batch
+
+    g = generators.snap_analogue("EEN", 0.05, seed=0)
+    config = StreamingConfig(frontier=mode)
+    card = StreamingKCoreEngine(g, config, mesh=make_mesh((4,), ("data",)))
+    cpu = StreamingKCoreEngine(g, config, mesh=make_mesh((4,), ("data",), device="cpu"))
+    assert card.device.type == "cuda"
+    rng = np.random.default_rng(1)
+    for churn in (12, 200, 40):
+        batch = random_churn_batch(cpu.graph, churn, churn, rng)
+        sk.launches = 0
+        got = card.apply_batch(batch)
+        assert sk.launches > 0
+        want = cpu.apply_batch(batch)
+        np.testing.assert_array_equal(got.core, want.core)
+        np.testing.assert_array_equal(got.core, bz_core_numbers(cpu.graph))
+        assert (got.rounds, got.mode, got.region_size, got.flag_reads) == \
+            (want.rounds, want.mode, want.region_size, want.flag_reads)
+        for k in ("messages_per_round", "active_per_round", "changed_per_round"):
+            np.testing.assert_array_equal(getattr(got.stats, k), getattr(want.stats, k))
+    assert card.state_dict()["shard_A_floor"] == cpu.state_dict()["shard_A_floor"]
 
 
 def _same_step(got, want):

@@ -35,7 +35,8 @@ for name in ("repro_torch.temporal", "repro_torch.temporal.events", "repro_torch
              "repro_torch.streaming.concurrent", "repro_torch.obs.http",
              "repro_torch.launch.kcore_serve", "repro_torch.graph.blockstore",
              "repro_torch.core.outofcore", "repro_torch.core.termination",
-             "repro_torch.graph.io", "repro_torch.core.ktruss"):
+             "repro_torch.graph.io", "repro_torch.core.ktruss", "repro_torch.distribution",
+             "repro_torch.distribution.compat", "repro_torch.launch.mesh"):
     assert name in names, name
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
@@ -85,14 +86,23 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(where, tmp_path):
 
 def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.core.kcore import kcore_decompose
+    from repro_torch.distribution import compat
     from repro_torch.graph import generators
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.platform import resolve_device
+    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine
     from repro_torch.temporal import WindowedKCoreEngine, replay, temporal_barabasi_albert
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, _ = generators.fig1_example()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kcore_decompose(g)
+    # a mesh is built for the card unless the CPU is asked for
+    for build in (lambda: compat.make_mesh((2,), ("data",)), make_debug_mesh,
+                  lambda: compat.global_mesh("shard"),
+                  lambda: StreamingKCoreEngine(g, StreamingConfig(frontier="sharded"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     log = temporal_barabasi_albert(20, 2, seed=0)
@@ -115,18 +125,42 @@ def test_dispatch_plan_follows_the_device():
     assert plan.kind == "torch" and plan.device.type == "cpu"
 
 
-def test_not_ported_combinations_name_their_roadmap_item():
-    from repro_torch.graph import generators
-    from repro_torch.streaming import StreamingConfig, StreamingKCoreEngine
+def test_sharded_combinations_equal_the_reference():
+    """What the port refused before the sharded paths were ported (the
+    ``sharded`` frontier with no mesh, ``fused`` on a mesh) runs for the
+    engine, the window and ``replay``, equal to the reference given the
+    same arguments on its one-device mesh."""
+    from repro import streaming as jax_streaming
+    from repro import temporal as jax_temporal
+    from repro.distribution.compat import make_mesh as jax_make_mesh
+    from repro.graph import generators as jax_gen
+    from repro_torch.distribution.compat import make_mesh
+    from repro_torch.graph import from_reference
+    from repro_torch.streaming import EdgeBatch, StreamingConfig, StreamingKCoreEngine
     from repro_torch.temporal import WindowedKCoreEngine, replay, temporal_barabasi_albert
 
-    g = generators.chain(10)
+    jg = jax_gen.chain(10)
     log = temporal_barabasi_albert(20, 2, seed=0)
-    for config, mesh in ((StreamingConfig(frontier="sharded"), None),
-                         (StreamingConfig(frontier="fused"), object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-            StreamingKCoreEngine(g, config, mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-            WindowedKCoreEngine(log, 10, 5, config=config, mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-            replay(log, 10, 5, config=config, mesh=mesh, device="cpu")
+    rlog = jax_temporal.temporal_barabasi_albert(20, 2, seed=0)
+    for frontier, shards in (("sharded", None), ("fused", 2)):
+        mesh = None if shards is None else make_mesh((shards,), ("data",), device="cpu")
+        jmesh = None if shards is None else jax_make_mesh((1,), ("data",))
+        cfg = StreamingConfig(frontier=frontier)
+        jcfg = jax_streaming.StreamingConfig(frontier=frontier)
+        eng = StreamingKCoreEngine(from_reference(jg), cfg, mesh=mesh, device="cpu")
+        ref = jax_streaming.StreamingKCoreEngine(jg, jcfg, mesh=jmesh)
+        got = eng.apply_batch(EdgeBatch.make(insert=[(0, 5), (2, 7)]))
+        want = ref.apply_batch(jax_streaming.EdgeBatch.make(insert=[(0, 5), (2, 7)]))
+        np.testing.assert_array_equal(got.core, want.core)
+        assert (got.mode, got.rounds, got.total_messages) == \
+            (want.mode, want.rounds, want.total_messages)
+        w, rw = (WindowedKCoreEngine(log, 10, 5, config=cfg, mesh=mesh, device="cpu"),
+                 jax_temporal.WindowedKCoreEngine(rlog, 10, 5, config=jcfg, mesh=jmesh))
+        for _ in range(2):
+            a, b = w.advance(), rw.advance()
+            np.testing.assert_array_equal(a.core, b.core)
+            assert a.result.total_messages == b.result.total_messages
+        traj = replay(log, 10, 5, config=cfg, mesh=mesh, device="cpu")
+        rtraj = jax_temporal.replay(rlog, 10, 5, config=jcfg, mesh=jmesh)
+        assert [(r.messages, r.mode) for r in traj.records] == \
+            [(r.messages, r.mode) for r in rtraj.records]

@@ -21,12 +21,14 @@ import torch
 from repro import checkpoint as jax_ckpt
 from repro import streaming as jax_streaming
 from repro import temporal as jax_temporal
+from repro.distribution.compat import make_mesh as jax_make_mesh
 from repro.graph import generators as jax_gen
 from repro_torch import checkpoint as ckpt
 from repro_torch import streaming
 from repro_torch import temporal
 from repro_torch.core.bz import bz_core_numbers
 from repro_torch.core.kcore import kcore_decompose
+from repro_torch.distribution.compat import make_mesh
 from repro_torch.graph import generators as gen
 from repro_torch.obs import flight
 from repro_torch.streaming import (ConcurrentKCoreServer, KCoreServer, Request, SnapshotBox,
@@ -150,11 +152,17 @@ def test_server_modes_and_refusals():
     with pytest.raises(ValueError, match="exactly one"):
         KCoreServer()
     for kw in ({"config": StreamingConfig(frontier="compact")}, {"device": "cpu"},
-               {"mesh": object()}):
+               {"mesh": object()}, {"axis_names": ("model",)}):
         with pytest.raises(ValueError, match="belong to the WindowedKCoreEngine"):
             KCoreServer(windowed=weng, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-        KCoreServer(g, mesh=object(), device="cpu")
+    # a mesh runs the static server's engine mesh-native, as the reference's does
+    meshed = KCoreServer(g, StreamingConfig(frontier="sharded"),
+                         mesh=make_mesh((2,), ("data",), device="cpu"))
+    ref = jax_streaming.KCoreServer(jax_gen.barabasi_albert(80, 3, seed=0),
+                                    jax_streaming.StreamingConfig(frontier="sharded"),
+                                    mesh=jax_make_mesh((1,), ("data",)))
+    assert meshed.engine.mesh.size == 2 and meshed.engine.device.type == "cpu"
+    assert np.array_equal(meshed.engine.core, ref.engine.core) and meshed.max_k() == ref.max_k()
     srv = KCoreServer(g, device="cpu")
     assert srv.engine.device.type == "cpu"
     assert KCoreServer(windowed=weng).engine is weng.engine

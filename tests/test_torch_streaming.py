@@ -292,17 +292,38 @@ def test_state_dict_round_trip_continues_in_lockstep(mode):
     assert a.state_dict()["n_iters_hwm"] == b.state_dict()["n_iters_hwm"]
 
 
-def test_sharded_modes_name_their_roadmap_item():
-    g = gen.chain(10)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-        StreamingKCoreEngine(g, StreamingConfig(frontier="sharded"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-        StreamingKCoreEngine(g, StreamingConfig(frontier="fused"), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-        StreamingKCoreEngine.from_state_dict({}, StreamingConfig(frontier="sharded"),
-                                             device="cpu")
+@pytest.mark.parametrize("frontier", ["sharded", "fused"])
+def test_sharded_modes_equal_the_reference_engine(frontier):
+    """``sharded`` with no mesh (a one-shard mesh) and ``fused`` on a mesh
+    (``fused_sharded``), built and restored through ``from_state_dict``:
+    every ``BatchResult`` field and the state equal the reference's on its
+    one-device mesh."""
+    from repro.distribution.compat import make_mesh as jax_make_mesh
+    from repro_torch.distribution.compat import make_mesh
+
+    g = GRAPHS["ba"](jax_gen)
+    mesh = None if frontier == "sharded" else make_mesh((3,), ("data",), device="cpu")
+    port = StreamingKCoreEngine(from_reference(g), StreamingConfig(frontier=frontier), mesh=mesh,
+                                device="cpu")
+    ref = jax_engine.StreamingKCoreEngine(g, jax_engine.StreamingConfig(frontier=frontier),
+                                          mesh=jax_make_mesh((1,), ("data",)))
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        batch = jax_delta.random_churn_batch(ref.graph, 10, 10, rng)
+        want = ref.apply_batch(batch)
+        got = port.apply_batch(_batch(batch))
+        assert got.mode == want.mode == ("sharded" if frontier == "sharded" else "fused_sharded")
+        _assert_batch_equal(got, want)
+        if i == 0:
+            port = StreamingKCoreEngine.from_state_dict(
+                port.state_dict(), StreamingConfig(frontier=frontier), mesh=mesh, device="cpu")
+    state, ref_state = port.state_dict(), ref.state_dict()
+    # the arc block's floor is the shard geometry's: equal on equal shard counts
+    same = ("shard_A_floor",) if port.mesh.size == 1 else ()
+    for k in ("arc_pad_hwm", "n_iters_hwm", "batches_applied", "core", *same):
+        np.testing.assert_array_equal(state[k], ref_state[k], err_msg=k)
     with pytest.raises(ValueError, match="unknown frontier"):
-        StreamingKCoreEngine(g, StreamingConfig(frontier="nope"), device="cpu")
+        StreamingKCoreEngine(from_reference(g), StreamingConfig(frontier="nope"), device="cpu")
 
 
 @pytest.fixture
