@@ -18,9 +18,13 @@ multi-process paths (``kcore_decompose_sharded`` and the streaming engine on a m
 shards, and across gloo processes, each round's h-index and receivers on ``segment_sum``
 over the stacked local shards), LM serving
 (``launch.serve``, prefill attention
-on the flash-attention kernel) and DIN (``launch.din_serve``, the context bag
-on the embedding-bag kernel); each kernel is hand-written CUDA under
-``src/repro_torch/kernels``. Phases, each of which must pass:
+on the flash-attention kernel), DIN (``launch.din_serve``, the context bag
+on the embedding-bag kernel) and the GNN family's forward paths
+(``models/gnn``: GraphCast's weather rollout through
+``launch.graphcast_weather``, GraphCast's generic mode, SchNet, EGNN and MACE,
+every message aggregation on the float form of the segment-sum kernel); each
+kernel is hand-written CUDA under ``src/repro_torch/kernels``. Phases, each
+of which must pass:
 
 1. Card: the card's name and power limit, as ``nvidia-smi`` gives them.
 2. Build: the four kernels, for sm_90a, from the sources in this checkout, with
@@ -196,10 +200,36 @@ on the embedding-bag kernel); each kernel is hand-written CUDA under
    240 s limit. Then ``kcore_run --graph FC --scale 0.05 --mesh 2 --fused
    --json`` and ``kcore_serve --graph EEN --scale 0.05 --mesh 2 --frontier
    sharded --batches 2 --queries 10000 --verify`` in subprocesses.
-22. The ``kernels`` JSON line: each kernel's launches in the main path's
+22. GNN forward. (a) The float segment-sum kernel against its plain
+   version on the CPU tests' cases (float32 and bf16, F 1 to 1,152, empty
+   rows, E = 0, rows of one arc, masked pad arcs, a non-contiguous view, a
+   base 4 bytes off 16, (E,) values) and at the main path's shapes, each
+   timed: the weather processor's scatter (327,660 arcs, F 512, float32,
+   40,962 rows), MACE's a2 scatter of one SPR chunk (1,865,728 arcs, F
+   1,152, bf16, 2,097,152 rows) and the widest SPR row alone at that width;
+   within twice the float32 summation bound of the plain version on the
+   card, bit-equal to it on the CPU (but the SPR chunk), the same bits run
+   to run. (b) GraphCast weather at full ``CONFIG`` through
+   ``launch.graphcast_weather``'s functions: a 3-step rollout (18 kernel
+   launches a step), ms a step, the peak, the TF32 setting and one step
+   under ``torch.profiler``; one step held against the plain scatter on the
+   card and a float64 evaluation (``checks.hold``). (c) SchNet, EGNN, MACE
+   and GraphCast at full width on ``full_graph_sm`` (node logits) and
+   ``molecule`` (energies; GraphCast's embeddings), the card against the CPU
+   from the same weights: float32 by ``checks.hold``, bf16 by
+   ``checks.hold_bf16`` against a float64 evaluation. (d) GraphCast-generic
+   node logits at full width over ``minibatch_lg``'s geometry sampled from
+   SPR (1,024 seeds, fanout (15, 10)). (e) MACE at full width over SPR with
+   ``ogb_products``' 100 features, arcs padded to 59,703,296: 32 chunks, 192
+   launches; the first chunk's three scatters held against the plain
+   version, the kernel route against the plain-scatter route and a float32
+   evaluation (float64 would not fit) by the bf16 rule.
+23. The ``kernels`` JSON line: each kernel's launches in the main path's
    runs, its largest error against its plain version, its time a call and
    on the device (flash attention's under ``timed``), the plain version's,
-   the library call's and the bound.
+   the library call's and the bound; the float form of the segment sum as
+   its own entry, ``segment_sum_float`` (the weather shape's numbers; every
+   timed shape under ``timed``).
 
 It then prints the card line, the ``kernels`` JSON line and, last, the ``ok``
 line. It exits non-zero, without the ``ok`` line, if any check fails, if no
@@ -229,6 +259,9 @@ KERNEL_FILES = {
                         "src/repro/kernels/flash_attention/kernel.py:85"),
     "embedding_bag": ("src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/kernel.py:38"),
+    # the float form of the segment sum: the same source and TPU kernel, its own entry points
+    "segment_sum_float": ("src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu",
+                          "src/repro/kernels/segment_sum/kernel.py:45"),
 }
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor cores, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -2120,6 +2153,355 @@ def sharded_full(torch, dev, g, core_bz, spr_fused, stream_first, spr_scale, lau
     return err
 
 
+# the GNN phase: configs/base.py GNN_SHAPES (full_graph_sm, minibatch_lg's geometry, ogb_products'
+# features and classes, molecule), GraphCast's weather CONFIG (arXiv:2212.12794), seed-0 weights
+GNN = {"seed": 0, "weather_steps": 3, "full_graph": (2708, 10556, 1433, 7),
+       "molecules": (128, 30, 64), "minibatch": (1024, (15, 10), 602, 41),
+       "products": (100, 47)}
+# the float kernel's timed shapes: weather's processor scatter, MACE's a2 scatter of one SPR chunk
+# (1,865,728 arcs of the padded 59,703,296), and the widest SPR row alone at MACE's width
+WEATHER_CASE = "weather mm (processor block)"
+FLOAT_TOL = ("|kernel - plain| within twice the float32 summation bound gamma_(d-1) sum|v| of "
+             "each row's d terms, plus one output ulp for bf16 (checks.segment_sum_excess); "
+             "bit-equal to the plain version on the CPU, which adds in edge order")
+
+
+def float_case(torch, dev, st, vals, ids, n: int, label: str, timed: bool = False,
+               cpu_bits: bool = True):
+    """Hold the float segment-sum kernel on ``vals`` by ``ids`` into ``n``
+    rows against its plain version on the card (``FLOAT_TOL``), against the
+    plain version on the CPU bit for bit (``cpu_bits``), and against its own
+    second call bit for bit. ``timed`` adds a call's time, the device time,
+    the plain version's, ``index_add_``'s and the bytes bound."""
+    from repro_torch import checks
+    from repro_torch.kernels.segment_sum import ops as sk
+
+    lay = sk.segment_layout(ids, n, device=dev)
+    got = sk.segment_sum_float(vals, lay)
+    again = sk.segment_sum_float(vals, lay)
+    plain = sk.segment_sum_float_ref(vals, lay.ids, n)
+    excess, err = checks.segment_sum_excess(vals, lay.ids, n, got, plain)
+    ok = excess <= 0 and torch.equal(got, again)
+    E, F = vals.shape[0], vals.shape[1] if vals.dim() == 2 else 1
+    msg = (f"segment_sum_float {label}: E={E} n={n} F={F} {str(vals.dtype)[6:]}: max |kernel - "
+           f"plain| {err:.3g} (excess over the bound {excess:.3g}), same bits twice")
+    if cpu_bits:
+        bits = torch.equal(got.cpu(), sk.segment_sum_float(vals.cpu(), sk.segment_layout(
+            lay.ids.cpu(), n)))
+        ok = ok and bits
+        msg += f", bit-equal to the CPU's plain version {bits}"
+    del got, again, plain
+    st["err"] = max(st["err"], err)
+    st["excess"] = max(st["excess"], excess)
+    if timed:
+        s = vals.element_size()
+        ms = time_ms(torch, lambda: sk.segment_sum_float(vals, lay), 20)
+        dev_ms = device_ms(torch, lambda: sk.segment_sum_float(vals, lay), 5, "segment_sum_float")
+        plain_ms = time_ms(torch, lambda: sk.segment_sum_float_ref(vals, lay.ids, n), 3, warmup=1)
+        lib = time_ms(torch, lambda: torch.zeros((n, *vals.shape[1:]), dtype=vals.dtype,
+                                                 device=dev).index_add_(0, lay.ids, vals), 5,
+                      warmup=1)
+        bnd = bound_ms(E * F * s + 8 * E + 8 * (n + 1) + n * F * s)
+        st["timed"][label] = dict(E=E, n=n, F=F, dtype=str(vals.dtype)[6:], ms=ms,
+                                  device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
+                                  bound_ms=bnd)
+        msg += (f": {ms:.4f} ms a call, {dev_ms or 0.0:.4f} ms on the device (plain "
+                f"{plain_ms:.3f} ms, index_add_ {lib:.4f} ms, bound {bnd:.4f} ms, {bnd / ms:.1%} "
+                f"of the call, {bnd / (dev_ms or ms):.1%} of the device time)")
+    check(ok, msg)
+    return lay
+
+
+def float_kernel_cases(torch, np, dev, st, g, small: bool) -> None:
+    """Phase 22a: the float kernel against its plain version on the CPU
+    tests' cases and at the main path's shapes."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.models.gnn import graphcast, steps
+
+    rng = np.random.default_rng(22)
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rand(E, F, dtype, extra=0):
+        return torch.randn((E, F + extra), generator=gen, device=dev).mul_(30).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for F in (1, 3, 17, 64, 9 * 16, 512, 1152):
+            float_case(torch, dev, st, rand(20_000, F, dtype), rng.integers(0, 1_500, 20_000),
+                       1_600, f"{name} F={F}, empty rows")
+        float_case(torch, dev, st, rand(0, 5, dtype), np.zeros(0, np.int64), 13, f"{name} E = 0")
+        float_case(torch, dev, st, rand(3_000, 24, dtype), rng.permutation(5_000)[:3_000], 5_000,
+                   f"{name} rows of one arc")
+        keep = torch.as_tensor(rng.random(9_000) < 0.7, device=dev)
+        ids = rng.integers(0, 300, 9_000)
+        float_case(torch, dev, st, rand(9_000, 128, dtype) * keep[:, None].to(dtype),
+                   np.where(keep.cpu().numpy(), ids, 0), 300, f"{name} masked pad arcs")
+        float_case(torch, dev, st, rand(14_000, 64, dtype, 3)[::2, 3:], rng.integers(0, 200, 7_000),
+                   200, f"{name} a non-contiguous view")
+        x = rand(4_000 * 16 + 2, 1, dtype)[:, 0]
+        off = x[4 // x.element_size():][:4_000 * 16].view(4_000, 16)
+        float_case(torch, dev, st, off, rng.integers(0, 90, 4_000), 90,
+                   f"{name} base 4 bytes off 16 ({off.data_ptr() % 16})")
+        float_case(torch, dev, st, rand(3_840, 1, dtype)[:, 0], np.repeat(np.arange(128), 30), 128,
+                   f"{name} (E,) values, 30 a row")
+        float_case(torch, dev, st, rand(20_000, 4, dtype), rng.integers(0, 10, 20_000), 10,
+                   f"{name} 2,000 arcs a row")
+
+    # the main path's shapes
+    wcfg = (get_smoke if small else get_config)("graphcast")
+    graph = graphcast.make_weather_graph(wcfg, 0)
+    d = wcfg.d_hidden
+    float_case(torch, dev, st, rand(graph["mm_dst"].shape[0], d, torch.float32), graph["mm_dst"],
+               wcfg.params["mesh_nodes"], WEATHER_CASE, timed=True)
+    C = (get_smoke if small else get_config)("mace").d_hidden
+    E = steps._pad512(g.num_arcs)
+    Ec = E // (32 if not small else 1)
+    dst = np.concatenate([g.dst, np.zeros(E - g.num_arcs, np.int32)])[:Ec]
+    float_case(torch, dev, st, rand(Ec, 9 * C, torch.bfloat16), dst, g.n,
+               "MACE a2 chunk over SPR", timed=True, cpu_bits=small)
+    top = int(np.argmax(g.deg))
+    float_case(torch, dev, st, rand(int(g.deg[top]), 9 * C, torch.bfloat16),
+               np.zeros(int(g.deg[top]), np.int64), 1, "the widest SPR row alone at MACE's a2 width",
+               timed=True)
+    del graph, dst
+
+
+def gnn_forward(torch, np, dev, g, st, smi, small: bool = False) -> int:
+    """Phase 22: the GNN family's forward paths on the float segment-sum
+    kernel. Returns the kernel's launches in the main path's runs (the
+    weather rollout, the four models, the sampled batch, MACE over SPR).
+    ``small`` (the CPU rehearsal) runs the SMOKE configs and cuts the
+    sampled batch's seeds by 16."""
+    from repro_torch import checks
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.graph import generators, sampler
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.launch import graphcast_weather as GW
+    from repro_torch.models.gnn import common, graphcast, mace, steps
+    from repro_torch.obs.profile import format_profile, profile_call
+
+    on_card = dev.type == "cuda"
+    card = smi.replace("\n", "; ") if smi else "no card"
+    cfg_of = get_smoke if small else get_config
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def reset():
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        sk.float_launches = 0
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if on_card else 0
+
+    def timed(fn):
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = fn()
+        if on_card:
+            torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    def held(what, r, rule):
+        ulp = r["ulp"]
+        if rule == "bf16":
+            return check(r["ok"], f"{what}, in bf16 ulps ({ulp:.3g}) of the largest magnitude: "
+                         f"card vs the more exact evaluation {r['err64'] / ulp:.2f}, the "
+                         f"reference route's {r['ref64'] / ulp:.2f}, card vs reference route "
+                         f"{r['err'] / ulp:.2f} (the bf16 rule: at most the reference's + 1)")
+        return check(r["ok"], f"{what}, in float32 ulps ({ulp:.3g}) of the largest magnitude: "
+                     f"card vs reference route {r['err'] / ulp:.2f}, card vs float64 "
+                     f"{r['err64'] / ulp:.2f}, reference route vs float64 {r['noise'] / ulp:.2f}; "
+                     f"tolerance {r['tol'] / ulp:.2f}")
+
+    # a. the float kernel against its plain version
+    t0 = time.perf_counter()
+    float_kernel_cases(torch, np, dev, st, g, small)
+    print(f"  (a) the float kernel's cases in {time.perf_counter() - t0:.1f} s ({card})")
+
+    # b. GraphCast weather at CONFIG: a rollout through the launcher's functions
+    cfg = cfg_of("graphcast")
+    p = cfg.params
+    t0 = time.perf_counter()
+    graph, layouts = GW.make_graph(cfg, dev)
+    params = graphcast.init_weather_params(cfg, GNN["seed"], dev)
+    state = GW.initial_state(cfg, dev)
+    print(f"  (b) {cfg.name}: {p['grid_lat']} x {p['grid_lon']} grid, {p['mesh_nodes']} mesh "
+          f"nodes, g2m/mm/m2g {p['grid2mesh_edges']}/{p['mesh_edges']}/{p['mesh2grid_edges']} "
+          f"arcs, d {cfg.d_hidden}, {cfg.n_layers} processor layers, {p['n_vars']} variables; "
+          f"graph, layouts and weights on {dev} in {time.perf_counter() - t0:.2f} s")
+    GW.rollout(params, cfg, state, graph, layouts, 1)        # warm-up: cuBLAS, the allocator
+    reset()
+    res = GW.rollout(params, cfg, state, graph, layouts, GNN["weather_steps"])
+    n = sk.float_launches
+    launches += n
+    print(f"  weather rollout: {sum(res.ms_per_step) / len(res.ms_per_step):.3f} ms a step "
+          f"(steps {', '.join(f'{t:.3f}' for t in res.ms_per_step)} ms); peak device memory "
+          f"{peak()} bytes; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}; float kernel launches {n} ({card})")
+    check(tuple(res.state.shape) == (p["grid_lat"] * p["grid_lon"], p["n_vars"])
+          and bool(torch.isfinite(res.state).all()),
+          f"{GNN['weather_steps']}-step rollout finite, shape {tuple(res.state.shape)}")
+    if on_card:
+        check(n == GNN["weather_steps"] * (cfg.n_layers + 2),
+              f"18 float kernel launches a weather step ({n} == {GNN['weather_steps']} x "
+              f"{cfg.n_layers + 2})")
+        with torch.inference_mode():
+            _, prof = profile_call(
+                lambda: graphcast.weather_forward(params, cfg, state, graph, layouts), dev, top=10)
+        print("  one weather step under torch.profiler:")
+        print("\n".join("    " + line for line in format_profile({"step": prof}).splitlines()))
+    with torch.inference_mode():
+        one = graphcast.weather_forward(params, cfg, state, graph, layouts)
+        with common.plain_scatter():
+            plain = graphcast.weather_forward(params, cfg, state, graph, layouts)
+            f64 = graphcast.weather_forward(common.params_to(params, dtype=torch.float64), cfg,
+                                            state.double(), graph, layouts)
+    held("weather step on the card against the plain scatter on the card (reference route) and "
+         "a float64 evaluation", checks.hold(one, plain, f64), "float32")
+    del graph, layouts, params, state, res, one, plain, f64
+
+    # c. the four models at full width, the card against the CPU from the same weights
+    n_nodes, n_edges, d_feat, n_classes = GNN["full_graph"]
+    fg = generators.erdos_renyi(n_nodes, n_edges, seed=0)
+    full_batch = common.batch_from_graph(fg, d_feat, n_classes, seed=0)
+    n_mols = GNN["molecules"][0]
+    for arch in ("schnet", "egnn", "mace", "graphcast"):
+        cfg = cfg_of(arch)
+        rule = "bf16" if arch in ("mace", "graphcast") else "float32"
+        batches = {"full_graph_sm": full_batch, "molecule": common.batch_molecules(
+            *GNN["molecules"], cfg.params.get("n_species", 10), seed=0)}
+        for kind, batch in batches.items():
+            full = kind == "full_graph_sm"
+            params = steps.init_params(cfg, GNN["seed"], d_in=d_feat if full else None,
+                                       n_classes=n_classes if full else 0, device=dev)
+            mod = steps.model_module(cfg)
+            if full:
+                what, fn = "node_logits", lambda p_, b_: steps.node_logits(p_, cfg, b_)
+            elif arch == "graphcast":
+                what, fn = "node_embeddings", lambda p_, b_: mod.node_embeddings(p_, cfg, b_)
+            else:
+                what, fn = "energy", lambda p_, b_: mod.energy(p_, cfg, b_, n_mols)
+            on = common.batch_to(batch, dev)
+            reset()
+            out, wall = timed(lambda: fn(params, on))
+            n = sk.float_launches
+            launches += n
+            cpu_out, cpu_wall = timed(lambda: fn(common.params_to(params, "cpu"),
+                                                 common.batch_to(batch, "cpu")))
+            with common.plain_scatter():
+                f64, _ = timed(lambda: fn(common.params_to(params, dtype=torch.float64), on))
+            f64 = f64.cpu()
+            r = checks.hold_bf16(out, cpu_out, f64) if rule == "bf16" else \
+                checks.hold(out, cpu_out, f64)
+            print(f"  (c) {cfg.name} {what} on {kind} ({batch['node_mask'].shape[0]} nodes, "
+                  f"{batch['src'].shape[0]} arcs): card {wall * 1e3:.1f} ms (first call), CPU "
+                  f"{cpu_wall * 1e3:.1f} ms; float kernel launches {n} ({card})")
+            check(tuple(out.shape) == tuple(cpu_out.shape) and bool(torch.isfinite(out).all()),
+                  f"{cfg.name} {what} on {kind}: shape {tuple(out.shape)}, finite")
+            held(f"{cfg.name} {what} on {kind}: card against the CPU (reference route)", r, rule)
+            del params, out, cpu_out, f64, on
+
+    # d. minibatch_lg's geometry over phase 6's SPR graph: GraphCast-generic node logits
+    seeds, fanout, d_feat, n_classes = GNN["minibatch"]
+    seeds //= 16 if small else 1
+    t0 = time.perf_counter()
+    sub = next(sampler.minibatch_stream(g, seeds, fanout, seed=0))
+    batch = common.batch_from_sampled(g, sub, d_feat, n_classes, seed=0)
+    batch.pop("n_seeds")
+    on = common.batch_to(batch, dev)
+    lay = common.dst_layout(on)
+    cfg = cfg_of("graphcast")
+    params = steps.init_params(cfg, GNN["seed"], d_in=d_feat, n_classes=n_classes, device=dev)
+    print(f"  (d) {seeds} seeds, fanout {fanout} over SPR: {batch['node_mask'].shape[0]} nodes "
+          f"({int(batch['node_mask'].sum())} real), {batch['src'].shape[0]} arcs "
+          f"({int(batch['edge_mask'].sum())} real), d_feat {d_feat}, {n_classes} classes; sampled, "
+          f"built and staged in {time.perf_counter() - t0:.2f} s")
+    reset()
+    logits, wall = timed(lambda: steps.node_logits(params, cfg, on, layout=lay))
+    n = sk.float_launches
+    launches += n
+    print(f"  {cfg.name} node_logits: {wall * 1e3:.1f} ms; peak device memory {peak()} bytes; "
+          f"float kernel launches {n} ({card})")
+    check(tuple(logits.shape) == (batch["node_mask"].shape[0], n_classes)
+          and bool(torch.isfinite(logits).all()), f"sampled batch logits {tuple(logits.shape)} finite")
+    if on_card:
+        check(n == cfg.n_layers, f"one float kernel launch a layer ({n} == {cfg.n_layers})")
+    with common.plain_scatter():
+        plain, _ = timed(lambda: steps.node_logits(params, cfg, on, layout=lay))
+        f64, _ = timed(lambda: steps.node_logits(common.params_to(params, dtype=torch.float64),
+                                                 cfg, on, layout=lay))
+    held("sampled batch logits: the kernel route against the plain scatter on the card "
+         "(reference route) and a float64 evaluation", checks.hold_bf16(logits, plain, f64),
+         "bf16")
+    del sub, batch, on, lay, params, logits, plain, f64
+
+    # e. MACE at full width over SPR with ogb_products' features: the chunked branch
+    d_feat, n_classes = GNN["products"]
+    t0 = time.perf_counter()
+    batch = steps.pad_batch(common.batch_from_graph(g, d_feat, n_classes, seed=0))
+    on = common.batch_to(batch, dev)
+    del batch
+    layouts = mace.edge_layouts(on)
+    cfg = cfg_of("mace")
+    params = steps.init_params(cfg, GNN["seed"], d_in=d_feat, n_classes=n_classes, device=dev)
+    E = on["src"].shape[0]
+    print(f"  (e) {cfg.name} over SPR: {g.n} nodes, {g.num_arcs} arcs padded to {E}, "
+          f"{len(layouts)} chunks of {E // len(layouts)}, d_feat {d_feat}; built, staged and "
+          f"laid out in {time.perf_counter() - t0:.2f} s")
+    reset()
+    h, wall = timed(lambda: mace.node_embeddings(params, cfg, on, layout=layouts))
+    n = sk.float_launches
+    launches += n
+    print(f"  node_embeddings: {wall:.3f} s; peak device memory {peak()} bytes; float kernel "
+          f"launches {n} ({card})")
+    check(tuple(h.shape) == (g.n, cfg.d_hidden) and bool(torch.isfinite(h).all()),
+          f"MACE embeddings {tuple(h.shape)} finite")
+    if on_card:
+        check(n == 3 * len(layouts) * cfg.n_layers,
+              f"3 float kernel launches a chunk a layer ({n} == 3 x {len(layouts)} x "
+              f"{cfg.n_layers})")
+    # the plain-scatter route; the first chunk's three scatters held against the kernel there
+    first = []
+    scatter = mace.scatter_sum
+
+    def spy(values, layout):
+        out = scatter(values, layout)
+        if len(first) < 3:
+            got = sk.segment_sum_float(values.reshape(values.shape[0], -1), layout)
+            first.append(checks.segment_sum_excess(values, layout.ids, layout.n, got, out)[0])
+        return out
+
+    mace.scatter_sum = spy
+    try:
+        with common.plain_scatter():
+            plain, plain_wall = timed(lambda: mace.node_embeddings(params, cfg, on, layout=layouts))
+    finally:
+        mace.scatter_sum = scatter
+    check(len(first) == 3 and max(first) <= 0,
+          f"the first chunk's three scatters: kernel against plain on the card, excess over "
+          f"the bound {', '.join(f'{x:.3g}' for x in first)}")
+    # a float32 evaluation stands in for float64, which would not fit on the card here
+    compute, common.COMPUTE_DTYPE = common.COMPUTE_DTYPE, torch.float32
+    try:
+        with common.plain_scatter():
+            ref32, ref_wall = timed(lambda: mace.node_embeddings(params, cfg, on, layout=layouts))
+    finally:
+        common.COMPUTE_DTYPE = compute
+    print(f"  the plain-scatter route {plain_wall:.3f} s, the float32 evaluation {ref_wall:.3f} s; "
+          f"peak device memory {peak()} bytes ({card})")
+    held("MACE over SPR: the kernel route against the plain-scatter route (reference route) and "
+         "a float32 evaluation", checks.hold_bf16(h, plain, ref32), "bf16")
+    del on, layouts, params, h, plain, ref32
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -2152,6 +2534,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     stats["segment_sum"].update(device_ms=None, timed={})
     stats["flash_attention"].update(err=0.0, err_f32=0.0, bound_by="operations")
     stats["embedding_bag"].update(err=0.0, excess=-BAG_TOL, err_bf16_ulps=0.0, device_ms=None)
+    stats["segment_sum_float"].update(err=0.0, excess=-math.inf, device_ms=None, timed={})
 
     # ------------------------------------------------------------------ #
     phase("1. card")
@@ -2171,7 +2554,7 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
         secs = _build.build_all()
         print(f"built {sorted(secs)} in {time.perf_counter() - t0:.2f} s wall "
               f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())})")
-        for name in KERNEL_FILES:
+        for name in _build.SOURCES:
             for line in _build.ptxas_log(name).splitlines():
                 if any(w in line for w in ("Compiling entry", "registers", "spill", "wgmma",
                                            "arning")):
@@ -2494,10 +2877,17 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
           f"the CLIs")
     err = sharded_full(torch, dev, g, core_bz, spr_fused, stream_first, spr_scale, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
-    del g, core_bz, spr_fused, stream_first
+    del core_bz, spr_fused, stream_first      # g stays for phase 22
 
     # ------------------------------------------------------------------ #
-    phase("22. kernels")
+    phase(f"22. GNN forward: the float segment-sum kernel, GraphCast weather at full width, the "
+          f"four GNNs at full width, a minibatch_lg batch and MACE over SPR at scale {spr_scale}")
+    launches["segment_sum_float"] = gnn_forward(torch, np, dev, g, stats["segment_sum_float"],
+                                                smi, small=device != "cuda")
+    del g
+
+    # ------------------------------------------------------------------ #
+    phase("23. kernels")
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]
@@ -2516,6 +2906,12 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
             ok = st["err"] < FLASH_TOL["bfloat16"] and st["err_f32"] < FLASH_TOL["float32"]
             entry.update(max_abs_err_f32=st["err_f32"], tolerance=FLASH_TOL, timed=st["timed"],
                          check="within tolerance of plain" if ok else "MISMATCH")
+        if name == "segment_sum_float":
+            w = st["timed"][WEATHER_CASE]
+            entry.update(ms=w["ms"], device_ms=w["device_ms"], plain_ms=w["plain_ms"],
+                         bound_ms=w["bound_ms"], library_ms=w["library_ms"], max_excess=st["excess"],
+                         tolerance=FLOAT_TOL, timed=st["timed"],
+                         check="within tolerance of plain" if st["excess"] <= 0 else "MISMATCH")
         if name == "embedding_bag":
             # the per-case test of phase 15: |err| <= atol + rtol |want| for float32
             ok = st["excess"] <= BAG_TOL and st["err_bf16_ulps"] <= 1.0

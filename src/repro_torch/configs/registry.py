@@ -4,9 +4,11 @@
 The port holds the configs of the architectures it runs: the dense LMs
 ``qwen1.5-0.5b`` (served at full width), and ``yi-34b`` (GQA) and
 ``granite-34b`` (MQA, GELU MLP), whose ``SMOKE`` variants the tests use;
-and the recommender ``din`` (trained, served and retrieved at full width).
-For any other id ``get_config``/``get_smoke`` raise ``NotImplementedError``
-naming the ROADMAP.md item that will port it.
+the recommender ``din`` (trained, served and retrieved at full width); and
+the GNNs ``schnet``, ``egnn``, ``mace`` and ``graphcast``, whose forward
+paths run at full width (GraphCast's weather rollout among them). For the
+MoE ids ``get_config``/``get_smoke`` raise ``NotImplementedError``
+naming the ROADMAP.md items that will port them.
 """
 
 from __future__ import annotations
@@ -20,15 +22,15 @@ _MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1p5_0p5b",
     "din": "repro_torch.configs.din",
+    "mace": "repro_torch.configs.mace",
+    "graphcast": "repro_torch.configs.graphcast",
+    "schnet": "repro_torch.configs.schnet",
+    "egnn": "repro_torch.configs.egnn",
 }
 
 _NOT_PORTED = {
     "qwen2-moe-a2.7b": "ROADMAP.md Queue A item 17 (MoE)",
     "mixtral-8x22b": "ROADMAP.md Queue A items 17 and 18 (MoE; sliding-window attention)",
-    "mace": "ROADMAP.md Queue A item 12 (seed ML stack: models/gnn)",
-    "graphcast": "ROADMAP.md Queue A item 12 (seed ML stack: models/gnn)",
-    "schnet": "ROADMAP.md Queue A item 12 (seed ML stack: models/gnn)",
-    "egnn": "ROADMAP.md Queue A item 12 (seed ML stack: models/gnn)",
 }
 
 ARCH_IDS = ("qwen2-moe-a2.7b", "mixtral-8x22b", "yi-34b", "granite-34b", "qwen1.5-0.5b",

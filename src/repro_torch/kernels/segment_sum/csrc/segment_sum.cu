@@ -1,4 +1,5 @@
-// Segment sum of int32 values over CSR rows, for Hopper (sm_90a).
+// Segment sums over CSR rows, for Hopper (sm_90a): int32 values on the k-core
+// path, float32 and bf16 rows on the GNN path (the float form, below).
 //
 // Replaces: src/repro/kernels/segment_sum/kernel.py:_seg_kernel (through
 // segment_sum_pallas and ops.segment_sum_blocked). On the TPU that kernel is a
@@ -39,7 +40,25 @@
 // the output is written once and no memset is needed. Empty rows are path
 // items like any other and come out 0. Sums are taken in uint32, so overflow
 // wraps exactly as int32 addition does in the reference.
+//
+// The float form (segment_sum_float_f32 / _bf16, further down) serves the GNN
+// family's message aggregation: vals (E, F) float32 or bf16 in the edges'
+// own order, summed into (n, F) through a CSR layout of the segment ids
+// (`order`, a stable argsort of them, and `row_ptr`). It replaces the same
+// TPU kernel, which is dtype-generic, on the path models/gnn takes: every
+// scatter_sum of SchNet, EGNN, GraphCast and MACE. What bounds it: bytes, the
+// E rows of vals gathered once and n x F outputs written once; a row's terms
+// are summed in float32 in `order`, so the result is deterministic (unlike
+// index_add_'s atomics) and rounded once to the output dtype. Design: one
+// row per group of threads, the threads across F with 16-byte loads (4
+// float32 or 8 bf16; element by element where F, the row stride or the base
+// is not 16-byte aligned), every thread of a row reading the same order[j]
+// (one broadcast load a warp), eight gathered rows in flight a thread before
+// their adds, which stay in order. A row is walked by one group, so a row
+// of 98,432 arcs sets the tail; splitting wide rows (fixed partials in a
+// fixed order) is left for later.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -212,6 +231,149 @@ segment_sum_carries(const long long* __restrict__ carries, int* __restrict__ out
   if (v != 0 && r < n) atomicAdd(reinterpret_cast<unsigned*>(out) + r, v);
 }
 
+
+// ---------------------------------------------------------------------- //
+// The float form: out[r] = sum of vals[order[j]] for j in [row_ptr[r], row_ptr[r + 1])
+// ---------------------------------------------------------------------- //
+
+constexpr int kFloatThreads = 256;
+constexpr int kFloatUnroll = 8;  // gathered rows in flight a thread
+
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// Loads of kVec values (one 16-byte load, or one element), their float32 adds
+// into acc in order, and the rounded store.
+template <typename T, bool kVector>
+struct Io;
+
+template <>
+struct Io<float, true> {
+  static constexpr int kVec = 4;
+  using Raw = float4;
+  __device__ static Raw load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+  __device__ static void add(float* acc, const Raw& v) {
+    acc[0] += v.x;
+    acc[1] += v.y;
+    acc[2] += v.z;
+    acc[3] += v.w;
+  }
+  __device__ static void store(float* p, const float* acc) {
+    *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+};
+
+template <>
+struct Io<float, false> {
+  static constexpr int kVec = 1;
+  using Raw = float;
+  __device__ static Raw load(const float* p) { return __ldg(p); }
+  __device__ static void add(float* acc, const Raw& v) { acc[0] += v; }
+  __device__ static void store(float* p, const float* acc) { *p = acc[0]; }
+};
+
+template <>
+struct Io<__nv_bfloat16, true> {
+  static constexpr int kVec = 8;
+  using Raw = uint4;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static void add(float* acc, const Raw& v) {
+    acc[0] += bf16_lo(v.x);
+    acc[1] += bf16_hi(v.x);
+    acc[2] += bf16_lo(v.y);
+    acc[3] += bf16_hi(v.y);
+    acc[4] += bf16_lo(v.z);
+    acc[5] += bf16_hi(v.z);
+    acc[6] += bf16_lo(v.w);
+    acc[7] += bf16_hi(v.w);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* acc) {
+    uint4 w;
+    w.x = bf16_bits(acc[0]) | (bf16_bits(acc[1]) << 16);
+    w.y = bf16_bits(acc[2]) | (bf16_bits(acc[3]) << 16);
+    w.z = bf16_bits(acc[4]) | (bf16_bits(acc[5]) << 16);
+    w.w = bf16_bits(acc[6]) | (bf16_bits(acc[7]) << 16);
+    *reinterpret_cast<uint4*>(p) = w;
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16, false> {
+  static constexpr int kVec = 1;
+  using Raw = unsigned short;
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static void add(float* acc, const Raw& v) { acc[0] += __uint_as_float((unsigned)v << 16); }
+  __device__ static void store(__nv_bfloat16* p, const float* acc) {
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)bf16_bits(acc[0]);
+  }
+};
+
+// Block (tx, ty): ty rows a block, tx threads a row across its F / kVec columns
+// (looping where there are more columns than threads). vals' rows are ld
+// elements apart; out is (n, F) contiguous.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kFloatThreads)
+segment_sum_float_rows(const T* __restrict__ vals, long long ld, const long long* __restrict__ order,
+                       const long long* __restrict__ row_ptr, T* __restrict__ out, long long n,
+                       int F) {
+  using IO = Io<T, kVector>;
+  constexpr int V = IO::kVec;
+  const long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  if (r >= n) return;
+  const long long b = __ldg(row_ptr + r), e = __ldg(row_ptr + r + 1);
+  const int cols = F / V;
+  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+    const T* col = vals + (long long)c * V;
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    long long j = b;
+    for (; j + kFloatUnroll <= e; j += kFloatUnroll) {
+      long long o[kFloatUnroll];
+      typename IO::Raw x[kFloatUnroll];
+#pragma unroll
+      for (int k = 0; k < kFloatUnroll; ++k) o[k] = __ldg(order + j + k);
+#pragma unroll
+      for (int k = 0; k < kFloatUnroll; ++k) x[k] = IO::load(col + o[k] * ld);
+#pragma unroll
+      for (int k = 0; k < kFloatUnroll; ++k) IO::add(acc, x[k]);
+    }
+    for (; j < e; ++j) IO::add(acc, IO::load(col + __ldg(order + j) * ld));
+    IO::store(out + r * F + (long long)c * V, acc);
+  }
+}
+
+template <typename T>
+int launch_float(const void* vals, long long ld, const void* order, const void* row_ptr, void* out,
+                 long long n, long long F, void* stream) {
+  if (n < 0 || F < 1 || F > 0x7fffffffLL || ld < 1) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  constexpr int V = Io<T, true>::kVec;
+  const bool vec = F % V == 0 && ld % V == 0 && ((uintptr_t)vals & 15) == 0 &&
+                   ((uintptr_t)out & 15) == 0;
+  const long long cols = vec ? F / V : F;
+  const int tx = (int)(cols < kFloatThreads ? cols : kFloatThreads);
+  const int ty = kFloatThreads / tx;
+  const long long blocks = (n + ty - 1) / ty;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 block((unsigned)tx, (unsigned)ty);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    segment_sum_float_rows<T, true><<<(unsigned)blocks, block, 0, s>>>(
+        (const T*)vals, ld, (const long long*)order, (const long long*)row_ptr, (T*)out, n, (int)F);
+  else
+    segment_sum_float_rows<T, false><<<(unsigned)blocks, block, 0, s>>>(
+        (const T*)vals, ld, (const long long*)order, (const long long*)row_ptr, (T*)out, n, (int)F);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -242,6 +404,20 @@ int segment_sum_i32(const void* vals, const void* row_ptr, void* out, void* scra
   segment_sum_carries<<<(unsigned)((blocks + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       carries, (int*)out, n, blocks);
   return (int)cudaGetLastError();
+}
+
+// vals (E, F) float32 / bf16 with rows ld elements apart, in the edges' order;
+// order (E,) int64, a stable argsort of the segment ids; row_ptr (n+1,) int64,
+// the CSR offsets after it; out (n, F) contiguous, of vals' dtype. One launch
+// on `stream`; returns cudaGetLastError().
+int segment_sum_float_f32(const void* vals, long long ld, const void* order, const void* row_ptr,
+                          void* out, long long n, long long F, void* stream) {
+  return launch_float<float>(vals, ld, order, row_ptr, out, n, F, stream);
+}
+
+int segment_sum_float_bf16(const void* vals, long long ld, const void* order, const void* row_ptr,
+                           void* out, long long n, long long F, void* stream) {
+  return launch_float<__nv_bfloat16>(vals, ld, order, row_ptr, out, n, F, stream);
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

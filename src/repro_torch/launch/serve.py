@@ -152,7 +152,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
         if args.cfg.family != "lm":
             ap.error(f"--arch {args.arch} is a {args.cfg.family} model; this serves language "
-                     f"models (DIN: python -m repro_torch.launch.din_serve)")
+                     f"models (DIN: python -m repro_torch.launch.din_serve; GraphCast weather: "
+                     f"python -m repro_torch.launch.graphcast_weather)")
         check_ported(args.cfg)
     except (NotImplementedError, KeyError) as e:
         ap.error(str(e).strip("'\""))

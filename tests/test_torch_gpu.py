@@ -599,3 +599,153 @@ def test_din_serve_and_a_train_step_on_the_card_match_the_cpu(cuda):
     _hold(*(o[2]["loss"] for o in outs))
     _hold(*(o[2]["grad_norm"] for o in outs))
     _hold(*(leaves(o[0]) for o in outs))
+
+
+# ------------------- the float segment sum and the GNNs ------------------- #
+
+def _float_case(cuda, E, n, F, dtype, seed, view=False, ids=None):
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, n, E) if ids is None else ids
+    base = torch.as_tensor(r.uniform(-100, 100, (E + 1, F + 3)).astype(np.float32)).to(dtype)
+    vals = base[1:, 3:] if view else base[:E, :F].contiguous()
+    return vals, ids
+
+
+def _hold_float_kernel(cuda, vals, ids, n):
+    """The kernel on the card: bit-equal to the plain version on the CPU
+    (``index_add_`` adds in edge order there, as the kernel does), within
+    ``checks.segment_sum_excess``'s bound of the plain version on the card
+    (atomics in no fixed order), and the same bits on a second call."""
+    lay = sk.segment_layout(ids, n, device=cuda)
+    v = vals.to(cuda)
+    before = sk.float_launches
+    got = sk.segment_sum_float(v, lay)
+    again = sk.segment_sum_float(v, lay)
+    torch.cuda.synchronize()
+    assert sk.float_launches == before + (2 if n else 0)
+    assert got.dtype == vals.dtype and torch.equal(got, again)
+    cpu = sk.segment_sum_float(vals, sk.segment_layout(ids, n))
+    assert torch.equal(got.cpu(), cpu)
+    plain = sk.segment_sum_float_ref(v, lay.ids, n)
+    assert checks.segment_sum_excess(v, lay.ids, n, got, plain)[0] <= 0
+
+
+@pytest.mark.parametrize("F", [1, 3, 17, 64, 9 * 16, 512, 1152])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_segment_sum_kernel_matches_plain(cuda, dtype, F):
+    vals, ids = _float_case(cuda, 20_000, 1_500, F, dtype, F)
+    _hold_float_kernel(cuda, vals, ids, 1_600)       # rows 1,500.. empty
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["E = 0", "rows of one arc", "masked pad arcs",
+                                  "non-contiguous view", "base 4 bytes off 16", "(E,) values",
+                                  "a 98,432-arc row among empty rows", "n = 0"])
+def test_float_segment_sum_kernel_at_its_edges(cuda, dtype, case):
+    r = np.random.default_rng(len(case))
+    if case == "E = 0":
+        vals, ids, n = torch.zeros((0, 8), dtype=dtype), np.zeros(0, np.int64), 100
+    elif case == "rows of one arc":
+        vals, _ = _float_case(cuda, 3_000, 1, 24, dtype, 1)
+        ids, n = r.permutation(5_000)[:3_000], 5_000
+    elif case == "masked pad arcs":
+        vals, ids = _float_case(cuda, 9_000, 300, 128, dtype, 2)
+        keep = torch.as_tensor(r.random(9_000) < 0.7)
+        vals, ids, n = vals * keep[:, None].to(dtype), np.where(keep.numpy(), ids, 0), 300
+    elif case == "non-contiguous view":
+        vals, ids = _float_case(cuda, 7_000, 200, 64, dtype, 3, view=True)
+        assert not vals.is_contiguous()
+        n = 200
+    elif case == "base 4 bytes off 16":
+        x = torch.as_tensor(r.standard_normal(4_000 * 16 + 2).astype(np.float32)).to(dtype)
+        vals = x[2 if dtype == torch.bfloat16 else 1:][:4_000 * 16].view(4_000, 16)
+        assert vals.data_ptr() % 16 == 4
+        ids, n = r.integers(0, 90, 4_000), 90
+    elif case == "(E,) values":
+        vals, ids, n = torch.as_tensor(r.standard_normal(3_840).astype(np.float32)).to(dtype), \
+            np.repeat(np.arange(128), 30), 128
+    elif case == "a 98,432-arc row among empty rows":
+        vals, _ = _float_case(cuda, 98_432, 1, 256, dtype, 5)
+        ids, n = np.full(98_432, 500_000), 1_000_001
+    else:
+        vals, ids, n = torch.zeros((0, 4), dtype=dtype), np.zeros(0, np.int64), 0
+    _hold_float_kernel(cuda, vals, ids, n)
+
+
+def test_float_segment_sum_kernel_refuses_what_it_does_not_take(cuda):
+    lay = sk.segment_layout(np.array([0, 1, 1]), 2, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sk.segment_sum_float(torch.ones(3, 2, dtype=torch.float64, device=cuda), lay)
+    w = torch.ones(3, 2, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sk.segment_sum_float(w, lay)
+    with torch.no_grad():
+        assert sk.segment_sum_float(w, lay).tolist() == [[1, 1], [2, 2]]
+    with pytest.raises(ValueError, match="layout on"):
+        sk.segment_sum_float(torch.ones(3, 2), lay)
+
+
+def _gnn(arch):
+    from repro_torch.models.gnn import common as PC, steps as PS
+
+    cfg = get_smoke(arch)
+    batch = PC.batch_molecules(6, 10, 20, 4, seed=2)
+    params = PS.init_params(cfg, 0, device="cpu")
+    return cfg, PC, PS, batch, params
+
+
+@pytest.mark.parametrize("arch", ["schnet", "egnn", "mace"])
+def test_gnn_energy_on_the_card_matches_the_cpu(cuda, arch):
+    """SMOKE weights on the card, the CPU and in float64 (plain scatter),
+    float32 held by ``checks.hold``, bf16 (MACE) by ``checks.hold_bf16``;
+    one float kernel launch a scatter."""
+    cfg, PC, PS, batch, params = _gnn(arch)
+    mod = PS.model_module(cfg)
+    before = sk.float_launches
+    with torch.no_grad():
+        card = mod.energy(PC.params_to(params, cuda), cfg, PC.batch_to(batch, cuda), 6)
+        torch.cuda.synchronize()
+        launched = sk.float_launches - before
+        cpu = mod.energy(params, cfg, PC.batch_to(batch, "cpu"), 6)
+        with PC.plain_scatter():
+            f64 = mod.energy(PC.params_to(params, dtype=torch.float64), cfg,
+                             PC.batch_to(batch, "cpu"), 6)
+    assert launched == {"schnet": 3, "egnn": 5, "mace": 7}[arch]
+    if arch == "mace":
+        assert checks.hold_bf16(card, cpu, f64)["ok"]
+    else:
+        _hold(card, cpu, f64)
+
+
+@pytest.mark.parametrize("arch", ["graphcast", "mace"])
+def test_gnn_bf16_node_embeddings_on_the_card(cuda, arch):
+    cfg, PC, PS, batch, params = _gnn(arch)
+    mod = PS.model_module(cfg)
+    with torch.no_grad():
+        card = mod.node_embeddings(PC.params_to(params, cuda), cfg, PC.batch_to(batch, cuda))
+        cpu = mod.node_embeddings(params, cfg, PC.batch_to(batch, "cpu"))
+        with PC.plain_scatter():
+            f64 = mod.node_embeddings(PC.params_to(params, dtype=torch.float64), cfg,
+                                      PC.batch_to(batch, "cpu"))
+    r = checks.hold_bf16(card, cpu, f64)
+    assert r["ok"], r
+
+
+def test_weather_rollout_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.launch import graphcast_weather as GW
+    from repro_torch.models.gnn import common as PC, graphcast
+
+    cfg = get_smoke("graphcast")
+    params = graphcast.init_weather_params(cfg, 0, device="cpu")
+    outs = []
+    for dev, p, dtype in [(cuda, PC.params_to(params, cuda), torch.float32),
+                          ("cpu", params, torch.float32),
+                          ("cpu", PC.params_to(params, dtype=torch.float64), torch.float64)]:
+        graph, layouts = GW.make_graph(cfg, dev)
+        before = sk.float_launches
+        with PC.plain_scatter() if dtype == torch.float64 else torch.no_grad():
+            outs.append(GW.rollout(p, cfg, GW.initial_state(cfg, dev).to(dtype), graph, layouts,
+                                   3).state)
+        if dev == cuda:
+            assert sk.float_launches - before == 3 * (cfg.n_layers + 2)
+    _hold(*outs)

@@ -36,7 +36,13 @@ for name in ("repro_torch.temporal", "repro_torch.temporal.events", "repro_torch
              "repro_torch.launch.kcore_serve", "repro_torch.graph.blockstore",
              "repro_torch.core.outofcore", "repro_torch.core.termination",
              "repro_torch.graph.io", "repro_torch.core.ktruss", "repro_torch.distribution",
-             "repro_torch.distribution.compat", "repro_torch.launch.mesh"):
+             "repro_torch.distribution.compat", "repro_torch.launch.mesh",
+             "repro_torch.configs.schnet", "repro_torch.configs.egnn", "repro_torch.configs.mace",
+             "repro_torch.configs.graphcast", "repro_torch.graph.sampler",
+             "repro_torch.models.gnn.schnet", "repro_torch.models.gnn.egnn",
+             "repro_torch.models.gnn.graphcast", "repro_torch.models.gnn.mace",
+             "repro_torch.models.gnn.steps", "repro_torch.models.gnn.convert",
+             "repro_torch.launch.graphcast_weather"):
     assert name in names, name
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
