@@ -19,10 +19,11 @@ shards, and across gloo processes, each round's h-index and receivers on ``segme
 over the stacked local shards), LM serving
 (``launch.serve``, prefill attention
 on the flash-attention kernel), DIN (``launch.din_serve``, the context bag
-on the embedding-bag kernel) and the GNN family's forward paths
-(``models/gnn``: GraphCast's weather rollout through
-``launch.graphcast_weather``, GraphCast's generic mode, SchNet, EGNN and MACE,
-every message aggregation on the float form of the segment-sum kernel); each
+on the embedding-bag kernel) and the GNN family, forward and training
+(``models/gnn``: GraphCast's weather rollout and training loop through
+``launch.graphcast_weather``, GraphCast's generic mode, SchNet, EGNN and MACE
+and their train steps, every message aggregation on the float form of the
+segment-sum kernel, whose backward is a gather); each
 kernel is hand-written CUDA under ``src/repro_torch/kernels``. Phases, each
 of which must pass:
 
@@ -84,15 +85,15 @@ of which must pass:
 12. Full size, temporal: SPR's temporal log (``temporal_snap_analogue("SPR",
    1.0, remove_frac=0.15)``, made from phase 6's graph), a count window of
    3,000,000 events sliding 300,000 at a time in ``fused`` mode: filled in
-   one advance of 10 strides, then 2 sliding advances, each boundary checked
-   by ``check_step`` (edge set, engine graph, cores against BZ); per step the
-   batch, rounds and messages against a fused from-scratch run, the phase
-   walls, the ``window.diff`` wall and the step wall, CSR health, launches
-   and peak device memory. After the first slide the window is checkpointed,
-   restored into a fresh engine and both take the next advance: equal cores,
-   bills and every ``BatchResult`` accounting field. ``segment_sum`` is held
-   bit-exact against its plain version on the fill's staged live arcs
-   (2,097,152 rows, most empty).
+   one advance of 10 strides, each boundary checked by ``check_step`` (edge
+   set, engine graph, cores against BZ); per step the batch, rounds and
+   messages against a fused from-scratch run, the phase walls, the
+   ``window.diff`` wall and the step wall, CSR health, launches and peak
+   device memory. ``segment_sum`` is held bit-exact against its plain
+   version on the fill's staged live arcs (2,097,152 rows, most empty).
+   After the fill the window is checkpointed and restored into a fresh
+   engine, and both take one sliding advance: equal cores, bills and every
+   ``BatchResult`` accounting field.
 13. Flash attention against its plain version: the serve shape (bf16,
    B*H 128, S 2048, d 64, causal), a ragged S, GQA and MQA, a window, d 128,
    float32, Sq != Sk, rows masked everywhere, head slices of one fused
@@ -224,12 +225,34 @@ of which must pass:
    launches; the first chunk's three scatters held against the plain
    version, the kernel route against the plain-scatter route and a float32
    evaluation (float64 would not fit) by the bf16 rule.
-23. The ``kernels`` JSON line: each kernel's launches in the main path's
-   runs, its largest error against its plain version, its time a call and
-   on the device (flash attention's under ``timed``), the plain version's,
-   the library call's and the bound; the float form of the segment sum as
-   its own entry, ``segment_sum_float`` (the weather shape's numbers; every
-   timed shape under ``timed``).
+23. GNN training. (a) The float segment sum's backward (``grad_out[ids]``,
+   no kernel) against autograd through the plain version on the card, bit
+   for bit, float32 and bf16, at the weather processor's shape (327,660 x
+   512, the gather timed), ragged rows with empty ones, (E,) values and E =
+   0; the forward is one launch. (b) GraphCast weather at full ``CONFIG``:
+   5 AdamW steps of the example's next-state loss through
+   ``launch.graphcast_weather.train``, processor blocks checkpointed: ms a
+   step, the peak (below 40 GB), 34 float kernel launches a step (18 in the
+   forward, 16 in the recomputed blocks), the losses; then, the AdamW
+   moments freed, one step's loss, grad norm and six named gradient leaves
+   held by ``checks.hold`` against the plain scatter on the card and a
+   float64 evaluation on the card (with fewer processor blocks if twice
+   the training peak passes 70 GB). (c) A train step of SchNet, EGNN, MACE
+   and GraphCast at full width on ``full_graph_sm`` and ``molecule`` (GraphCast
+   at 4 of its 16 layers, which take 20-31 s a step on the CPU), the
+   card against the CPU from the same weights: loss, grad norm and the
+   updated parameters, float32 by ``checks.hold``, bf16 by
+   ``checks.hold_bf16`` against a float64 evaluation. (d) The seed-prefix
+   loss: a GraphCast-generic train step over phase 22's ``minibatch_lg``
+   batch, two launches a layer, held against the plain scatter and float64
+   on the card by the bf16 rule.
+24. The ``kernels`` JSON line, after each phase's wall: each kernel's
+   launches in the main path's runs, its largest error against its plain
+   version, its time a call and on the device (flash attention's under
+   ``timed``), the plain version's, the library call's and the bound; the
+   float form of the segment sum as its own entry, ``segment_sum_float``
+   (the weather shape's numbers; every timed shape under ``timed``; its
+   launches include the training runs').
 
 It then prints the card line, the ``kernels`` JSON line and, last, the ``ok``
 line. It exits non-zero, without the ``ok`` line, if any check fails, if no
@@ -285,7 +308,15 @@ def check(cond: bool, what: str) -> bool:
     return cond
 
 
+phase_walls: list = []       # [title, start, wall], the wall set when the next phase starts
+
+
 def phase(title: str) -> None:
+    """Start a phase: print its title and record the wall of the one that ends."""
+    now = time.perf_counter()
+    if phase_walls:
+        phase_walls[-1][2] = now - phase_walls[-1][1]
+    phase_walls.append([title, now, None])
     print(f"\n== {title}", flush=True)
 
 
@@ -1107,10 +1138,9 @@ def streaming_full(torch, dev, g, core_bz, launches):
 
 # the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 3,000,000
 # events (about 10 % of the stream) sliding 300,000 at a time (1 % of SPR's edges), filled in one
-# advance of 10 strides, then 2 sliding advances (so the whole smoke keeps inside its 1,200 s);
-# a checkpoint after the first of them
-TEMPORAL = {"remove_frac": 0.15, "window": 3_000_000, "stride": 300_000, "slides": 2,
-            "frontier": "fused"}
+# advance of 10 strides and checkpointed, then one sliding advance taken by the window and by its
+# warm restart (so the whole smoke keeps inside its 1,200 s)
+TEMPORAL = {"remove_frac": 0.15, "window": 3_000_000, "stride": 300_000, "frontier": "fused"}
 # BatchResult fields that are walls (or builds) rather than accounting
 WALLS = ("patch_s", "seed_s", "converge_s", "reconstruct_s", "recompiles", "compile_s", "stage_s")
 
@@ -1203,10 +1233,10 @@ def temporal_gate(torch, dev, launches) -> None:
 
 
 def temporal_full(torch, dev, g, spr_scale, launches) -> int:
-    """Phase 12: a window sliding over SPR's temporal log, BZ-checked at each
-    boundary, checkpointed and restarted warm after the first slide; then
-    the segment sum over a window graph's staged arcs, kernel against
-    plain. Returns the largest segment_sum error."""
+    """Phase 12: a window over SPR's temporal log filled, BZ-checked,
+    checkpointed and restored into a fresh engine; the segment sum over the
+    fill's staged arcs, kernel against plain; then one slide taken by both
+    engines. Returns the largest segment_sum error."""
     import shutil
     import tempfile
 
@@ -1283,7 +1313,6 @@ def temporal_full(torch, dev, g, spr_scale, launches) -> int:
                                                           src), row_ptr)],
                       "at a window graph's staged arcs")
     del src, dst, row_ptr, deg, wg, fill
-    step(weng, 1, "slide 1")
 
     tmp = tempfile.mkdtemp(prefix="kcore_ckpt_")
     try:
@@ -1303,8 +1332,8 @@ def temporal_full(torch, dev, g, spr_scale, launches) -> int:
     check(ckpt_step == weng.steps_taken and np.array_equal(warm.core, weng.core)
           and warm.bounds == weng.bounds, "the restored window holds the checkpointed cores "
                                           "and bounds")
-    a, _ = step(weng, 1, "slide 2")
-    b, _ = step(warm, 1, "slide 2, warm restart")
+    a, _ = step(weng, 1, "slide 1")
+    b, _ = step(warm, 1, "slide 1, warm restart")
     check(same_batch(a.result, b.result) and (a.lo, a.hi, a.m) == (b.lo, b.hi, b.m),
           "warm restart: the next advance equals the uninterrupted window's in cores, per-round "
           "bills and every BatchResult accounting field")
@@ -2166,6 +2195,21 @@ FLOAT_TOL = ("|kernel - plain| within twice the float32 summation bound gamma_(d
              "bit-equal to the plain version on the CPU, which adds in edge order")
 
 
+def held(what: str, r: dict, rule: str) -> bool:
+    """Check a ``checks.hold`` (``rule`` "float32") or ``checks.hold_bf16``
+    ("bf16") result ``r``, printing its distances in units in the last place."""
+    ulp = r["ulp"]
+    if rule == "bf16":
+        return check(r["ok"], f"{what}, in bf16 ulps ({ulp:.3g}) of the largest magnitude: "
+                     f"card vs the more exact evaluation {r['err64'] / ulp:.2f}, the "
+                     f"reference route's {r['ref64'] / ulp:.2f}, card vs reference route "
+                     f"{r['err'] / ulp:.2f} (the bf16 rule: at most the reference's + 1)")
+    return check(r["ok"], f"{what}, in float32 ulps ({ulp:.3g}) of the largest magnitude: "
+                 f"card vs reference route {r['err'] / ulp:.2f}, card vs float64 "
+                 f"{r['err64'] / ulp:.2f}, reference route vs float64 {r['noise'] / ulp:.2f}; "
+                 f"tolerance {r['tol'] / ulp:.2f}")
+
+
 def float_case(torch, dev, st, vals, ids, n: int, label: str, timed: bool = False,
                cpu_bits: bool = True):
     """Hold the float segment-sum kernel on ``vals`` by ``ids`` into ``n``
@@ -2266,12 +2310,13 @@ def float_kernel_cases(torch, np, dev, st, g, small: bool) -> None:
     del graph, dst
 
 
-def gnn_forward(torch, np, dev, g, st, smi, small: bool = False) -> int:
+def gnn_forward(torch, np, dev, g, st, smi, small: bool = False):
     """Phase 22: the GNN family's forward paths on the float segment-sum
     kernel. Returns the kernel's launches in the main path's runs (the
-    weather rollout, the four models, the sampled batch, MACE over SPR).
-    ``small`` (the CPU rehearsal) runs the SMOKE configs and cuts the
-    sampled batch's seeds by 16."""
+    weather rollout, the four models, the sampled batch, MACE over SPR) and
+    the sampled ``minibatch_lg`` batch (numpy) for phase 23. ``small`` (the
+    CPU rehearsal) runs the SMOKE configs and cuts the sampled batch's seeds
+    by 16."""
     from repro_torch import checks
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.graph import generators, sampler
@@ -2304,18 +2349,6 @@ def gnn_forward(torch, np, dev, g, st, smi, small: bool = False) -> int:
         if on_card:
             torch.cuda.synchronize(dev)
         return out, time.perf_counter() - t0
-
-    def held(what, r, rule):
-        ulp = r["ulp"]
-        if rule == "bf16":
-            return check(r["ok"], f"{what}, in bf16 ulps ({ulp:.3g}) of the largest magnitude: "
-                         f"card vs the more exact evaluation {r['err64'] / ulp:.2f}, the "
-                         f"reference route's {r['ref64'] / ulp:.2f}, card vs reference route "
-                         f"{r['err'] / ulp:.2f} (the bf16 rule: at most the reference's + 1)")
-        return check(r["ok"], f"{what}, in float32 ulps ({ulp:.3g}) of the largest magnitude: "
-                     f"card vs reference route {r['err'] / ulp:.2f}, card vs float64 "
-                     f"{r['err64'] / ulp:.2f}, reference route vs float64 {r['noise'] / ulp:.2f}; "
-                     f"tolerance {r['tol'] / ulp:.2f}")
 
     # a. the float kernel against its plain version
     t0 = time.perf_counter()
@@ -2410,15 +2443,15 @@ def gnn_forward(torch, np, dev, g, st, smi, small: bool = False) -> int:
     seeds //= 16 if small else 1
     t0 = time.perf_counter()
     sub = next(sampler.minibatch_stream(g, seeds, fanout, seed=0))
-    batch = common.batch_from_sampled(g, sub, d_feat, n_classes, seed=0)
-    batch.pop("n_seeds")
-    on = common.batch_to(batch, dev)
+    mb = common.batch_from_sampled(g, sub, d_feat, n_classes, seed=0)
+    mb.pop("n_seeds")
+    on = common.batch_to(mb, dev)
     lay = common.dst_layout(on)
     cfg = cfg_of("graphcast")
     params = steps.init_params(cfg, GNN["seed"], d_in=d_feat, n_classes=n_classes, device=dev)
-    print(f"  (d) {seeds} seeds, fanout {fanout} over SPR: {batch['node_mask'].shape[0]} nodes "
-          f"({int(batch['node_mask'].sum())} real), {batch['src'].shape[0]} arcs "
-          f"({int(batch['edge_mask'].sum())} real), d_feat {d_feat}, {n_classes} classes; sampled, "
+    print(f"  (d) {seeds} seeds, fanout {fanout} over SPR: {mb['node_mask'].shape[0]} nodes "
+          f"({int(mb['node_mask'].sum())} real), {mb['src'].shape[0]} arcs "
+          f"({int(mb['edge_mask'].sum())} real), d_feat {d_feat}, {n_classes} classes; sampled, "
           f"built and staged in {time.perf_counter() - t0:.2f} s")
     reset()
     logits, wall = timed(lambda: steps.node_logits(params, cfg, on, layout=lay))
@@ -2426,7 +2459,7 @@ def gnn_forward(torch, np, dev, g, st, smi, small: bool = False) -> int:
     launches += n
     print(f"  {cfg.name} node_logits: {wall * 1e3:.1f} ms; peak device memory {peak()} bytes; "
           f"float kernel launches {n} ({card})")
-    check(tuple(logits.shape) == (batch["node_mask"].shape[0], n_classes)
+    check(tuple(logits.shape) == (mb["node_mask"].shape[0], n_classes)
           and bool(torch.isfinite(logits).all()), f"sampled batch logits {tuple(logits.shape)} finite")
     if on_card:
         check(n == cfg.n_layers, f"one float kernel launch a layer ({n} == {cfg.n_layers})")
@@ -2437,7 +2470,7 @@ def gnn_forward(torch, np, dev, g, st, smi, small: bool = False) -> int:
     held("sampled batch logits: the kernel route against the plain scatter on the card "
          "(reference route) and a float64 evaluation", checks.hold_bf16(logits, plain, f64),
          "bf16")
-    del sub, batch, on, lay, params, logits, plain, f64
+    del sub, on, lay, params, logits, plain, f64
 
     # e. MACE at full width over SPR with ogb_products' features: the chunked branch
     d_feat, n_classes = GNN["products"]
@@ -2499,6 +2532,263 @@ def gnn_forward(torch, np, dev, g, st, smi, small: bool = False) -> int:
     if on_card:
         torch.cuda.empty_cache()
     print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, mb
+
+
+# the GNN training phase: the weather example's AdamW steps at GraphCast's full CONFIG (the
+# example takes 25), the peak they may reach, the float64 evaluation's budget on the 80 GB card,
+# and the gradient leaves held by name (a path into the weather parameter tree)
+GNN_TRAIN = {"weather_steps": 5, "peak_limit": 40e9, "f64_limit": 70e9}
+# GraphCast-generic's depth in the card-against-CPU train steps: its 16 layers at d 512 took
+# 30.7 s (full_graph_sm) and 19.8 s (molecule) a step on the chip host's CPU, so the phase
+# held them at 4 of 16 layers, full width (PERF.md section 4)
+CPU_GRAPHCAST_LAYERS = 4
+GRAD_LEAVES = (("grid_encode", 0, "w"), ("g2m", "edge_mlp", 0, "w"),
+               ("blocks", 0, "edge_mlp", 0, "w"), ("blocks", -1, "node_mlp", 1, "b"),
+               ("m2g", "node_mlp", 0, "w"), ("grid_decode", 1, "w"))
+
+
+def backward_case(torch, dev, gen, vals, ids, n: int, label: str, timed: bool = False) -> None:
+    """Phase 23a: the float segment sum's backward on the card against
+    autograd through its plain version on the card, bit for bit (both
+    gather ``grad_out`` by the segment ids); the forward is the one kernel
+    launch. ``timed`` adds the gather's time beside its bytes bound."""
+    from repro_torch.kernels.segment_sum import ops as sk
+
+    lay = sk.segment_layout(ids, n, device=dev)
+    g = torch.randn((n, *vals.shape[1:]), generator=gen, device=dev).to(vals.dtype)
+    a, b = (vals.detach().clone().requires_grad_(True) for _ in range(2))
+    before = sk.float_launches
+    sk.segment_sum_float(a, lay).backward(g)
+    launched = sk.float_launches - before
+    sk.segment_sum_float_ref(b, lay.ids, n).backward(g)
+    ok = a.grad.dtype == vals.dtype and torch.equal(a.grad, b.grad) and \
+        (launched == 1 or dev.type != "cuda")
+    E, F = vals.shape[0], vals.shape[1] if vals.dim() == 2 else 1
+    msg = (f"segment_sum_float backward, {label}: E={E} n={n} F={F} {str(vals.dtype)[6:]}: the "
+           f"gradient bit-equal to autograd through the plain version on the card, "
+           f"{launched} forward launch(es)")
+    if timed:
+        ms = time_ms(torch, lambda: g.index_select(0, lay.ids), 20)
+        bnd = bound_ms(n * F * vals.element_size() + 8 * E + E * F * vals.element_size())
+        msg += f"; the gather {ms:.4f} ms a call (bound {bnd:.4f} ms, {bnd / ms:.1%})"
+    check(ok, msg)
+
+
+def gnn_training(torch, np, dev, mb, smi, small: bool = False) -> int:
+    """Phase 23: GNN training on the float segment-sum kernel: its backward,
+    the weather example's steps at full ``CONFIG``, a train step of each
+    model at full width against the CPU, and the seed-prefix loss over phase
+    22's sampled batch ``mb``. Returns the kernel's launches in the training
+    runs. ``small`` (the CPU rehearsal) runs the SMOKE configs."""
+    import dataclasses
+    from contextlib import nullcontext
+
+    from repro_torch import checks
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs.base import GNN_SHAPES, ShapeSpec
+    from repro_torch.graph import generators
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.launch import graphcast_weather as GW
+    from repro_torch.models.gnn import common, graphcast, steps
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.tree import leaves
+
+    on_card = dev.type == "cuda"
+    card = smi.replace("\n", "; ") if smi else "no card"
+    cfg_of = get_smoke if small else get_config
+    shapes = {sp.name: sp for sp in GNN_SHAPES}
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def reset():
+        sync()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        sk.float_launches = 0
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if on_card else 0
+
+    # a. the backward at the weather processor's shape, ragged rows, empty rows and E = 0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rng = np.random.default_rng(23)
+    wcfg = cfg_of("graphcast")
+    mm_dst = graphcast.make_weather_graph(wcfg, 0)["mm_dst"]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        vals = torch.randn((mm_dst.shape[0], wcfg.d_hidden), generator=gen, device=dev).to(dtype)
+        backward_case(torch, dev, gen, vals, mm_dst, wcfg.params["mesh_nodes"],
+                      f"{name} {WEATHER_CASE}", timed=True)
+        del vals
+        backward_case(torch, dev, gen, torch.randn((20_000, 17), generator=gen, device=dev).to(dtype),
+                      rng.integers(0, 1_500, 20_000), 1_600, f"{name} ragged rows, rows 1,500.. empty")
+        backward_case(torch, dev, gen, torch.randn(3_840, generator=gen, device=dev).to(dtype),
+                      rng.integers(0, 100, 3_840), 128, f"{name} (E,) values, empty rows")
+        backward_case(torch, dev, gen, torch.zeros((0, 5), device=dev, dtype=dtype),
+                      np.zeros(0, np.int64), 13, f"{name} E = 0")
+    print(f"  (a) the backward's cases in {time.perf_counter() - t0:.1f} s ({card})")
+
+    # b. the weather example's training at full CONFIG, processor blocks checkpointed
+    t0 = time.perf_counter()
+    cfg = wcfg
+    graph, layouts = GW.make_graph(cfg, dev)
+    params = graphcast.init_weather_params(cfg, GNN["seed"], dev)
+    reset()
+    tr = GW.train(params, cfg, graph, layouts, GNN_TRAIN["weather_steps"])
+    n, pk = sk.float_launches, peak()
+    launches += n
+    per_step = 2 * cfg.n_layers + 2
+    nsteps = len(tr.losses)
+    print(f"  (b) {cfg.name}: {nsteps} AdamW steps of the example's loss: "
+          f"{sum(tr.ms_per_step) / nsteps:.3f} ms a step (steps "
+          f"{', '.join(f'{t:.3f}' for t in tr.ms_per_step)} ms; after the first "
+          f"{sum(tr.ms_per_step[1:]) / max(nsteps - 1, 1):.3f}); peak device memory {pk} bytes; "
+          f"float kernel launches {n} ({n / nsteps:.1f} a step); losses "
+          f"{', '.join(f'{x:.6f}' for x in tr.losses)} ({card})")
+    check(all(math.isfinite(x) for x in tr.losses), f"{nsteps} weather training losses finite")
+    if on_card:
+        check(n == nsteps * per_step, f"{per_step} float kernel launches a training step: "
+              f"{cfg.n_layers + 2} forward, {cfg.n_layers} in the recomputed blocks ({n} == "
+              f"{nsteps} x {per_step})")
+        check(pk < GNN_TRAIN["peak_limit"], f"weather training peak {pk / 1e9:.2f} GB below "
+              f"{GNN_TRAIN['peak_limit'] / 1e9:.0f} GB")
+    params = tr.params
+    del tr                                    # the AdamW moments
+    # one step's loss, grad norm and named gradient leaves: the kernel route, the plain-scatter
+    # route and a float64 evaluation, each on the card
+    keep = cfg.n_layers
+    if on_card and 2 * pk > GNN_TRAIN["f64_limit"]:
+        keep = max(1, int(cfg.n_layers * GNN_TRAIN["f64_limit"] / (2 * pk)))
+    hcfg = dataclasses.replace(cfg, n_layers=keep)
+    hparams = dict(params, blocks=params["blocks"][:keep])
+    state, target = GW.example_data(cfg, dev)
+
+    def one(p, st, plain):
+        with common.plain_scatter() if plain else nullcontext():
+            loss, grads = steps.value_and_grad(GW.weather_loss, p, hcfg, st, target, graph, layouts)
+        out = [loss.cpu(), global_norm(grads).cpu()]
+        for path in GRAD_LEAVES:
+            leaf = grads
+            for k in path:
+                leaf = leaf[k]
+            out.append(leaf.cpu())
+        return out
+
+    reset()
+    kern = one(hparams, state, False)
+    n = sk.float_launches
+    launches += n
+    plain = one(hparams, state, True)
+    reset()
+    f64 = one(common.params_to(hparams, dtype=torch.float64), state.double(), True)
+    pk64 = peak()
+    print(f"  one step held at {keep} of {cfg.n_layers} processor blocks (float64 predicted at "
+          f"2 x the training peak, {2 * pk / 1e9:.2f} GB, against {GNN_TRAIN['f64_limit'] / 1e9:.0f} "
+          f"GB); the float64 step's peak {pk64} bytes; loss {float(kern[0]):.6f}, grad norm "
+          f"{float(kern[1]):.6f}; kernel launches {n}")
+    for i, name in enumerate(["loss", "grad norm"] + ["grads" + "".join(f"[{k!r}]" for k in p)
+                                                      for p in GRAD_LEAVES]):
+        held(f"weather step {name}: the kernel route against the plain scatter on the card "
+             f"(reference route) and a float64 evaluation", checks.hold(kern[i], plain[i], f64[i]),
+             "float32")
+    del graph, layouts, params, hparams, state, target, kern, plain, f64
+    print(f"  (b) in {time.perf_counter() - t0:.1f} s")
+
+    # c. a train step of each model at full width, the card against the CPU from the same weights
+    t0 = time.perf_counter()
+    n_nodes, n_edges, d_feat, n_classes = GNN["full_graph"]
+    full_batch = common.batch_from_graph(generators.erdos_renyi(n_nodes, n_edges, seed=0), d_feat,
+                                         n_classes, seed=0)
+    for arch in ("schnet", "egnn", "mace", "graphcast"):
+        cfg = cfg_of(arch)
+        if arch == "graphcast" and not small:
+            cfg = dataclasses.replace(cfg, n_layers=CPU_GRAPHCAST_LAYERS)
+        rule = "bf16" if arch in ("mace", "graphcast") else "float32"
+        cases = [("full_graph_sm", full_batch),
+                 ("molecule", common.batch_molecules(*GNN["molecules"],
+                                                     cfg.params.get("n_species", 10), seed=0))]
+        for kind, batch in cases:
+            full = kind == "full_graph_sm"
+            params = steps.init_params(cfg, GNN["seed"], d_in=d_feat if full else None,
+                                       n_classes=n_classes if full else 0, device=dev)
+            step = steps.make_train_step(cfg, shapes[kind])
+            on = common.batch_to(batch, dev)
+            reset()
+            t1 = time.perf_counter()
+            out = step(params, adamw_init(params), on)
+            sync()
+            wall = time.perf_counter() - t1
+            n = sk.float_launches
+            launches += n
+            p32 = common.params_to(params, "cpu")
+            t1 = time.perf_counter()
+            cpu = step(p32, adamw_init(p32), common.batch_to(batch, "cpu"))
+            cpu_wall = time.perf_counter() - t1
+            p64 = common.params_to(params, dtype=torch.float64)
+            with common.plain_scatter():
+                f64 = step(p64, adamw_init(p64), on)
+            print(f"  (c) {cfg.name} ({cfg.n_layers} layers, d {cfg.d_hidden}) train step on "
+                  f"{kind}: card {wall * 1e3:.1f} ms (first call), "
+                  f"CPU {cpu_wall * 1e3:.1f} ms; float kernel launches {n}; loss "
+                  f"{float(out[2]['loss']):.6f} ({card})")
+            if on_card:
+                check(n > 0, f"{cfg.name} on {kind} launched the float kernel")
+            for what, pick in [("loss", lambda o: o[2]["loss"]),
+                               ("grad norm", lambda o: o[2]["grad_norm"]),
+                               ("updated parameters", lambda o: leaves(o[0]))]:
+                args = [common.params_to(pick(o), "cpu") for o in (out, cpu, f64)]
+                r = checks.hold_bf16(*args) if rule == "bf16" else checks.hold(*args)
+                held(f"{cfg.name} train step on {kind}, {what}: card against the CPU (reference "
+                     f"route)", r, rule)
+            del params, out, cpu, f64, p32, p64, on
+    print(f"  (c) in {time.perf_counter() - t0:.1f} s")
+
+    # d. the seed-prefix loss over phase 22's minibatch_lg batch, GraphCast generic
+    t0 = time.perf_counter()
+    seeds = GNN["minibatch"][0] // (16 if small else 1)
+    shape = ShapeSpec("minibatch_lg", "minibatch",
+                      dict(shapes["minibatch_lg"].params, batch_nodes=seeds))
+    cfg = cfg_of("graphcast")
+    on = common.batch_to(mb, dev)
+    lay = common.dst_layout(on)
+    d_feat, n_classes = mb["feats"].shape[1], GNN["minibatch"][3]
+    params = steps.init_params(cfg, GNN["seed"], d_in=d_feat, n_classes=n_classes, device=dev)
+    step = steps.make_train_step(cfg, shape)
+    reset()
+    t1 = time.perf_counter()
+    out = step(params, adamw_init(params), on, layout=lay)
+    sync()
+    wall = time.perf_counter() - t1
+    n, pk = sk.float_launches, peak()
+    launches += n
+    with common.plain_scatter():
+        plain = step(params, adamw_init(params), on, layout=lay)
+        p64 = common.params_to(params, dtype=torch.float64)
+        f64 = step(p64, adamw_init(p64), on, layout=lay)
+    print(f"  (d) {cfg.name} train step over the sampled batch ({seeds} seeds, "
+          f"{mb['node_mask'].shape[0]} nodes, {mb['src'].shape[0]} arcs): {wall * 1e3:.1f} ms "
+          f"(first call); peak device memory {pk} bytes; float kernel launches {n}; loss "
+          f"{float(out[2]['loss']):.6f} ({card})")
+    if on_card:
+        check(n == 2 * cfg.n_layers, f"two float kernel launches a layer, one recomputed ({n} == "
+              f"2 x {cfg.n_layers})")
+    for what, pick in [("loss", lambda o: o[2]["loss"]), ("grad norm", lambda o: o[2]["grad_norm"]),
+                       ("updated parameters", lambda o: leaves(o[0]))]:
+        held(f"sampled batch train step, {what}: the kernel route against the plain scatter on "
+             f"the card (reference route) and a float64 evaluation",
+             checks.hold_bf16(*(common.params_to(pick(o), "cpu") for o in (out, plain, f64))),
+             "bf16")
+    del on, lay, params, out, plain, f64, p64
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"  (d) in {time.perf_counter() - t0:.1f} s; phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2882,12 +3172,22 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     # ------------------------------------------------------------------ #
     phase(f"22. GNN forward: the float segment-sum kernel, GraphCast weather at full width, the "
           f"four GNNs at full width, a minibatch_lg batch and MACE over SPR at scale {spr_scale}")
-    launches["segment_sum_float"] = gnn_forward(torch, np, dev, g, stats["segment_sum_float"],
-                                                smi, small=device != "cuda")
+    launches["segment_sum_float"], mb = gnn_forward(torch, np, dev, g, stats["segment_sum_float"],
+                                                    smi, small=device != "cuda")
     del g
 
     # ------------------------------------------------------------------ #
-    phase("23. kernels")
+    phase(f"23. GNN training: the float segment sum's backward, GraphCast weather training at "
+          f"full width, the four GNNs' train steps at full width, the seed-prefix loss over the "
+          f"minibatch_lg batch")
+    launches["segment_sum_float"] += gnn_training(torch, np, dev, mb, smi,
+                                                  small=device != "cuda")
+    del mb
+
+    # ------------------------------------------------------------------ #
+    phase("24. kernels")
+    print("phase walls: " + "; ".join(f"{title.split(':')[0].split('.')[0]} {wall:.1f} s"
+                                      for title, _, wall in phase_walls[:-1]))
     kernels = []
     for name, (source, replaces) in KERNEL_FILES.items():
         st = stats[name]

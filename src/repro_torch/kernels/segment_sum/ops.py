@@ -18,9 +18,11 @@ segment into (n,) or (n, F) through a ``SegmentLayout`` (``segment_layout``
 builds one on the ids' device, once per graph or batch). Each row's terms
 are added in float32 in edge order and rounded once, so the result is the
 same run to run. On the CPU it is the plain version,
-``ref.segment_sum_float_ref``; on the card it launches its kernel or raises,
-and it refuses a tensor that requires grad (the backward arrives with the
-training slice). ``float_launches`` counts its launches apart from the int32
+``ref.segment_sum_float_ref``; on the card it launches its kernel or raises.
+It is differentiable on both devices through one ``torch.autograd.Function``:
+the backward is the gather ``grad_out[ids]`` in ``vals``' dtype, which is
+what ``jax.ops.segment_sum``'s VJP is, so no kernel runs there.
+``float_launches`` counts the forward's launches apart from the int32
 kernel's.
 """
 
@@ -142,25 +144,40 @@ def segment_layout(ids, n: int, device=None) -> SegmentLayout:
     return SegmentLayout(ids=ids, order=order, row_ptr=row_ptr)
 
 
+class _SegmentSumFloat(torch.autograd.Function):
+    """The float segment sum with the gather as its backward; the forward is
+    the kernel on a CUDA tensor and the plain version on a CPU one."""
+
+    @staticmethod
+    def forward(ctx, vals, layout):
+        ctx.layout, ctx.dtype = layout, vals.dtype
+        if vals.device.type == "cpu":
+            return segment_sum_float_ref(vals, layout.ids, layout.n)
+        return _launch_float(vals, layout)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return grad_out.index_select(0, ctx.layout.ids).to(ctx.dtype), None
+
+
 def segment_sum_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     """Per-segment sums: vals (E,) or (E, F) in edge order -> (n,) or (n, F)
-    in vals' dtype. Empty segments are 0."""
-    global float_launches
+    in vals' dtype. Empty segments are 0. Differentiable in ``vals``."""
     if vals.dim() not in (1, 2) or vals.shape[0] != layout.ids.numel():
         raise ValueError(f"vals must be (E,) or (E, F) with E = {layout.ids.numel()}, got "
                          f"{tuple(vals.shape)}")
     if vals.device != layout.order.device:
         raise ValueError(f"vals on {vals.device} but the layout on {layout.order.device}")
-    if vals.device.type == "cpu":
-        return segment_sum_float_ref(vals, layout.ids, layout.n)
-    if vals.device.type != "cuda":
+    if vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"segment_sum_float runs on cuda or cpu, not {vals.device}")
-    if vals.dtype not in _FLOAT_SYMBOL:
+    if vals.device.type == "cuda" and vals.dtype not in _FLOAT_SYMBOL:
         raise ValueError(f"the float segment-sum kernel takes float32 or bfloat16, not {vals.dtype}")
-    if vals.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("segment_sum_float has no backward on the card yet (it arrives with "
-                           "the training slice): call it under torch.no_grad() or "
-                           "torch.inference_mode()")
+    return _SegmentSumFloat.apply(vals, layout)
+
+
+def _launch_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
+    """One launch of the float kernel on checked CUDA ``vals``."""
+    global float_launches
     v = vals.unsqueeze(1) if vals.dim() == 1 else vals
     E, F = v.shape
     if F == 0:

@@ -4,7 +4,9 @@
 pytree with its leaves as numpy arrays, as ``jax.tree.map(np.asarray,
 params)`` gives them: either ``repro.models.gnn.steps.init_params``'s (the
 model's entries, ``classify`` when it has a head) or
-``graphcast.init_weather_params``'s. The reference stacks the per-layer
+``graphcast.init_weather_params``'s, or any tree shaped like those: the
+reference's gradients, or the ``m`` and ``v`` moments of its AdamW state
+(the training tests compare them leaf by leaf). The reference stacks the per-layer
 ``blocks`` along a leading ``n_layers`` axis; the port keeps a list of
 per-layer dicts, so the stacking is undone here. Keys, list lengths and
 shapes are checked against the model's ``param_spec`` (``d_in`` and

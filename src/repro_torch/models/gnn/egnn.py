@@ -1,11 +1,17 @@
 """EGNN [arXiv:2102.09844], the E(n)-equivariant GNN: the port of
-``repro.models.gnn.egnn`` (forward only).
+``repro.models.gnn.egnn``.
 
 Per layer:  m_ij = phi_e(h_i, h_j, |x_i - x_j|^2)
             x_i' = x_i + C * sum_j (x_i - x_j) phi_x(m_ij)
             h_i' = phi_h(h_i, sum_j m_ij)
 float32 throughout (float64 for float64 parameters). ``blocks`` is a list of
 per-layer dicts, where the reference stacks them along a leading axis.
+
+The coordinate update's ``sqrt(d2)`` takes a zero gradient where d2 is 0
+(a molecule batch's masked self-arcs, src = dst = 0), where ``torch.sqrt``'s
+infinite derivative times a zero cotangent would make the whole gradient
+NaN from the third layer on, as the reference's is from the second. The
+values are ``torch.sqrt``'s.
 """
 
 from __future__ import annotations
@@ -17,6 +23,12 @@ from repro_torch.models.gnn.common import (dst_layout, positions_for, graph_layo
                                            mlp_apply, mlp_init, mlp_spec,
                                            scatter_sum)
 from repro_torch.platform import resolve_device
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sqrt(x)`` for x >= 0, with a zero gradient at 0."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))), torch.zeros_like(x))
 
 
 def param_spec(cfg: GNNConfig, d_in: int | None = None) -> dict:
@@ -69,7 +81,7 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, return_pos: bool 
         m = m * emask[:, None]
         # coordinate update (normalized rel for stability)
         wx = mlp_apply(bp["phi_x"], m)
-        xagg = scatter_sum(rel / (torch.sqrt(d2) + 1) * wx, layout)
+        xagg = scatter_sum(rel / (_sqrt(d2) + 1) * wx, layout)
         x = x + xagg / 8.0
         magg = scatter_sum(m, layout)
         h = h + mlp_apply(bp["phi_h"], torch.cat([h, magg], dim=-1))

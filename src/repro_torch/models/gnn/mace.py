@@ -1,5 +1,5 @@
 """MACE [arXiv:2206.07697], higher-order E(3)-equivariant message passing:
-the port of ``repro.models.gnn.mace`` (forward only).
+the port of ``repro.models.gnn.mace``.
 
 l=0/1/2 features are carried as (scalars, vectors, symmetric-traceless
 matrices) per channel and all products use closed-form equivariant bilinear
@@ -14,8 +14,11 @@ Activations are bf16 (``COMPUTE_DTYPE``; float64 for float64 parameters).
 The A-features are accumulated over edge chunks exactly as the reference
 chunks them (above 2,000,000 arcs, 512-aligned chunks): each chunk's three
 segment sums are added into bf16 accumulators, two roundings as in the
-reference. The B-features' contractions are taken in float32 and rounded
-once, as XLA takes a bf16 contraction.
+reference. While grad is enabled each chunk's three segment sums run under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` wraps its
+chunk: autograd keeps the chunk's inputs, not its (Ec, C, 3, 3) messages.
+The B-features' contractions are taken in float32 and rounded once, as XLA
+takes a bf16 contraction.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.models.gnn.common import (compute_dtype, bessel_rbf, positions_for,
@@ -150,15 +154,34 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> t
         a0 = h.new_zeros((n, C))
         a1 = h.new_zeros((n, C, 3))
         a2 = h.new_zeros((n, C, 3, 3))
-        for i, lay in enumerate(layouts):
+
+        def chunk(hw_, radial_w, i, lay, acc=None):
+            """The i-th chunk's three segment sums, or, with ``acc``, each
+            added in place into its accumulator as soon as it is made."""
             sl = slice(i * Ec, (i + 1) * Ec)
-            radial = mlp_apply(bp["radial"], rbf[sl].to(h.dtype)) * emask[sl][:, None]
+            radial = mlp_apply(radial_w, rbf[sl].to(hw_.dtype)) * emask[sl][:, None]
             r0, r1, r2 = radial.split(C, dim=-1)
-            hsrc = hw.index_select(0, src[sl])                    # (Ec, C)
-            a0 += scatter_sum(r0 * hsrc, lay)
-            a1 += scatter_sum((r1 * hsrc)[:, :, None] * y1[sl][:, None, :], lay)
-            a2 += scatter_sum((r2 * hsrc)[:, :, None, None] * y2[sl][:, None, :, :], lay)
-            del radial, r0, r1, r2, hsrc
+            hsrc = hw_.index_select(0, src[sl])                   # (Ec, C)
+
+            def messages():
+                yield r0 * hsrc
+                yield (r1 * hsrc)[:, :, None] * y1[sl][:, None, :]
+                yield (r2 * hsrc)[:, :, None, None] * y2[sl][:, None, :, :]
+
+            sums = (scatter_sum(m, lay) for m in messages())
+            if acc is None:
+                return tuple(sums)
+            for a, s_ in zip(acc, sums):
+                a += s_
+
+        for i, lay in enumerate(layouts):
+            if torch.is_grad_enabled():
+                s0, s1, s2 = checkpoint(chunk, hw, bp["radial"], i, lay, use_reentrant=False,
+                                        preserve_rng_state=False)
+                a0, a1, a2 = a0 + s0, a1 + s1, a2 + s2
+                del s0, s1, s2
+            else:
+                chunk(hw, bp["radial"], i, lay, acc=(a0, a1, a2))
         feats = _invariants(a0, a1, a2) @ bp["w_b"].to(h.dtype)     # (n, 8C) @ (8C, C)
         del a0, a1, a2
         h = h + mlp_apply(bp["update"], torch.cat([h, feats], dim=-1))

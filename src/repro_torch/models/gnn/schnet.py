@@ -1,5 +1,5 @@
 """SchNet [arXiv:1706.08566], continuous-filter convolutions: the port of
-``repro.models.gnn.schnet`` (forward only).
+``repro.models.gnn.schnet``.
 
 Interaction block: h_j --(atomwise)--> x_j; filter W(r_ij) = MLP(rbf(r_ij));
 message = x_j * W(r_ij); aggregate (segment sum); atomwise MLP; residual.

@@ -1,9 +1,15 @@
-"""The GNN family's forward half of ``repro.models.gnn.steps``: the model
-registry, parameters with the ``classify`` head, node logits, and the
-batch specs of the assigned shapes.
+"""Train steps and batch specs of the GNN family (the port of
+``repro.models.gnn.steps``): the model registry, parameters with the
+``classify`` head, node logits, the two losses, ``make_train_step``,
+``build_train`` and the batch specs of the assigned shapes.
 
-The reference's train step, its losses and ``build_train`` arrive with the
-training slice (ROADMAP.md Queue A item 12); so do the mesh placements.
+  full_graph_sm / ogb_products — node cross-entropy over the whole graph;
+  minibatch_lg — node cross-entropy over the seed prefix of the sampled block;
+  molecule — per-graph energy MSE.
+
+Gradients come from autograd, through the float segment sum's backward (a
+gather) and the models' checkpointed blocks. There is no mesh yet:
+``build_train`` refuses one (ROADMAP.md Queue A item 12).
 """
 
 from __future__ import annotations
@@ -15,8 +21,10 @@ import torch
 
 from repro_torch.configs.base import GNNConfig, ShapeSpec
 from repro_torch.models.gnn import egnn, graphcast, mace, schnet
-from repro_torch.models.gnn.common import dst_layout
+from repro_torch.models.gnn.common import dst_layout, graph_layout, scatter_sum, set_flat_sharding
+from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.platform import resolve_device
+from repro_torch.tree import leaves, map_tree, unflatten
 
 _MODELS = {"mace": mace, "schnet": schnet, "egnn": egnn, "graphcast": graphcast}
 
@@ -54,6 +62,74 @@ def init_params(cfg: GNNConfig, seed: int = 0, d_in: int | None = None, n_classe
 def node_logits(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> torch.Tensor:
     h = model_module(cfg).node_embeddings(params, cfg, batch, layout=layout)
     return h @ params["classify"].to(h.dtype)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """float32, or float64 in a float64 evaluation."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _ce_loss(params: dict, cfg: GNNConfig, batch: dict, predict_mask: torch.Tensor,
+             layout=None) -> torch.Tensor:
+    """Mean node cross-entropy over ``predict_mask``, logits in float32."""
+    logits = _wide(node_logits(params, cfg, batch, layout))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(1, batch["labels"].long()[:, None])[:, 0]
+    m = predict_mask.to(logits.dtype)
+    return torch.sum((lse - gold) * m) / torch.clamp(m.sum(), min=1)
+
+
+def _energy_loss(params: dict, cfg: GNNConfig, batch: dict, n_graphs: int,
+                 layout=None) -> torch.Tensor:
+    """Mean squared error of the per-graph energies; GraphCast has no energy
+    head, so its node embeddings' means are pooled as the reference pools
+    them."""
+    mod = model_module(cfg)
+    pool = graph_layout(batch, n_graphs)
+    if cfg.kind == "graphcast":
+        h = mod.node_embeddings(params, cfg, batch, layout=layout)
+        e = scatter_sum(h.mean(-1) * batch["node_mask"].to(h.dtype), pool)
+    else:
+        e = mod.energy(params, cfg, batch, n_graphs, layout=layout, pool=pool)
+    return torch.mean((_wide(e) - batch["labels"]) ** 2)
+
+
+def value_and_grad(loss_fn, params, *args):
+    """``(loss, grads)`` of ``loss_fn(params, *args)``, ``grads`` shaped as
+    ``params``; a leaf the loss does not reach gets zeros, as in JAX."""
+    with torch.enable_grad():
+        live = map_tree(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(live, *args)
+        grads = torch.autograd.grad(loss, leaves(live), allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves(live), grads)]
+    return loss.detach(), unflatten(params, grads)
+
+
+def make_train_step(cfg: GNNConfig, shape: ShapeSpec, opt_cfg: AdamWConfig | None = None):
+    """``train_step(params, opt_state, batch, layout=None) -> (params,
+    opt_state, metrics)``: the shape's loss and its gradient, then
+    ``adamw_update`` (default ``AdamWConfig(lr=1e-3, weight_decay=0.0)``).
+    ``metrics`` holds ``loss``, ``grad_norm`` and ``lr``. ``layout`` is
+    ``edge_layout(cfg, batch)``, built in the step when not given."""
+    opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, weight_decay=0.0)
+    kind = shape.kind
+
+    def loss_fn(params, batch, layout):
+        if kind == "molecule":
+            return _energy_loss(params, cfg, batch, shape.params["batch"], layout)
+        mask = batch["node_mask"]
+        if kind == "minibatch":
+            seeds = torch.arange(mask.shape[0], device=mask.device) < shape.params["batch_nodes"]
+            mask = seeds & mask
+        return _ce_loss(params, cfg, batch, mask, layout)
+
+    def train_step(params, opt_state, batch, layout=None):
+        loss, grads = value_and_grad(loss_fn, params, batch, layout)
+        params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
 
 
 # ---------------------------------------------------------------------- #
@@ -130,3 +206,21 @@ def pad_batch(batch: dict) -> dict:
     if batch["labels"].shape[0] == N:
         out["labels"] = np.concatenate([batch["labels"], np.zeros(pn, batch["labels"].dtype)])
     return out
+
+
+def build_train(cfg: GNNConfig, shape: ShapeSpec, mesh):
+    """``(train_step, specs, None, None)``: the shape's step, its batch specs
+    (``specs["batch"]``) and its parameter shapes (``specs["_params"]``,
+    ``blocks`` a list of per-layer dicts). The reference's last two are the
+    mesh placements; a mesh raises ``NotImplementedError`` (ROADMAP.md Queue
+    A item 12)."""
+    set_flat_sharding(mesh, None)
+    bspecs = batch_specs(cfg, shape)
+    d_in = bspecs["feats"][0][1] if "feats" in bspecs else None
+    pspec = param_spec(cfg, d_in, n_classes_for(shape))
+    pspec["blocks"] = [pspec["blocks"]] * cfg.n_layers
+    return make_train_step(cfg, shape), {"batch": bspecs, "_params": pspec}, None, None
+
+
+# every assigned GNN shape lowers a train step
+build_step = build_train

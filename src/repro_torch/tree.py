@@ -2,7 +2,8 @@
 
 DIN's parameters are such a tree (``{"item_emb", "cate_emb", "attn": [{"w",
 "b"}, ...], "mlp": [...]}``). Leaves are walked in the order ``jax.tree``
-walks the reference's pytree: dict keys sorted, lists in order. Anything
+walks the reference's pytree: dict keys sorted, lists in order. ``None``
+(a GNN's absent ``proj_in``) holds no leaf, as in ``jax.tree``. Anything
 else (a tensor, a tuple) is a leaf.
 """
 
@@ -14,7 +15,7 @@ def leaves(tree) -> list:
         return [x for k in sorted(tree) for x in leaves(tree[k])]
     if isinstance(tree, list):
         return [x for node in tree for x in leaves(node)]
-    return [tree]
+    return [] if tree is None else [tree]
 
 
 def map_tree(fn, tree, *rest):
@@ -25,7 +26,7 @@ def map_tree(fn, tree, *rest):
         return {k: map_tree(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, list):
         return [map_tree(fn, *nodes) for nodes in zip(tree, *rest)]
-    return fn(tree, *rest)
+    return None if tree is None else fn(tree, *rest)
 
 
 def unflatten(tree, flat) -> dict | list:

@@ -262,6 +262,24 @@ def test_serve_cli_refuses_what_is_not_ported(arch, item):
         assert f"ROADMAP.md Queue A {item}" in out.stderr
 
 
+# ------------------------------ graphcast_weather ------------------------- #
+
+def test_graphcast_weather_cli_trains_then_rolls_out_on_the_cpu():
+    out = _run("repro_torch.launch.graphcast_weather", "--smoke", "--device", "cpu",
+               "--train-steps", "3")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    first, last = (float(x) for x in lines[0].removeprefix("weather next-state MSE: ")
+                   .split(" -> "))
+    assert 0 < last < first
+    assert lines[1] == "3-step rollout finite: True shape: (84, 8)"
+    assert lines[2].startswith("device: cpu") and "graphcast-smoke: train " in lines[2]
+    assert lines[2].count("ms a step") == 2 and "peak device memory not measured" in lines[2]
+    bad = _run("repro_torch.launch.graphcast_weather", "--smoke", "--device", "cpu",
+               "--train-steps", "-1")
+    assert bad.returncode == 2 and "--train-steps" in bad.stderr
+
+
 # ------------------------------ din_serve --------------------------------- #
 
 def test_din_serve_cli_on_the_cpu_prints_its_lines():

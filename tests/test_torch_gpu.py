@@ -5,8 +5,10 @@ mesh too) and the
 sliding window on ``segment_sum`` against the CPU (and a window checkpoint
 restored onto the card), the query server and its concurrent front end on
 the card against the CPU and their snapshots, serving through the flash kernel
-against the same weights served on the CPU, and DIN through the
-embedding-bag kernel against the CPU and a float64 evaluation.
+against the same weights served on the CPU, DIN through the
+embedding-bag kernel against the CPU and a float64 evaluation, and the GNNs
+on the float segment sum (its backward, the models and a weather training
+step) against the CPU.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is present;
 the file imports neither ``jax`` nor the reference, so it runs on a machine
@@ -14,6 +16,8 @@ with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+
+from contextlib import nullcontext
 
 import numpy as np
 import pytest
@@ -677,12 +681,62 @@ def test_float_segment_sum_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sk.segment_sum_float(torch.ones(3, 2, dtype=torch.float64, device=cuda), lay)
     w = torch.ones(3, 2, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        sk.segment_sum_float(w, lay)
+    # the backward on the card (a gather) equals the plain route's autograd; the forward is
+    # the one launch
+    g = torch.tensor([[1.0, -2.0], [3.5, 4.0]], device=cuda)
+    before = sk.float_launches
+    sk.segment_sum_float(w, lay).backward(g)
+    assert sk.float_launches == before + 1
+    wp = torch.ones(3, 2, device=cuda, requires_grad=True)
+    sk.segment_sum_float_ref(wp, lay.ids, 2).backward(g)
+    assert torch.equal(w.grad, wp.grad)
     with torch.no_grad():
         assert sk.segment_sum_float(w, lay).tolist() == [[1, 1], [2, 2]]
     with pytest.raises(ValueError, match="layout on"):
         sk.segment_sum_float(torch.ones(3, 2), lay)
+
+
+def test_float_segment_sum_backward_on_the_card_equals_the_plain_route(cuda):
+    r = np.random.default_rng(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        for E, n, F in [(20_000, 1_600, 64), (5_000, 300, 1), (0, 13, 8)]:
+            ids = r.integers(0, max(n - 100, 1), E)      # the last rows are empty
+            lay = sk.segment_layout(ids, n, device=cuda)
+            v = torch.as_tensor(r.standard_normal((E, F)).astype(np.float32), device=cuda)
+            g = torch.as_tensor(r.standard_normal((n, F)).astype(np.float32), device=cuda)
+            a, b = (v.to(dtype).requires_grad_(True) for _ in range(2))
+            sk.segment_sum_float(a, lay).backward(g.to(dtype))
+            sk.segment_sum_float_ref(b, lay.ids, n).backward(g.to(dtype))
+            assert a.grad.dtype == dtype and torch.equal(a.grad, b.grad)
+
+
+def test_weather_train_step_on_the_card_matches_the_cpu(cuda):
+    """One step of the weather example's loss at SMOKE: the loss, and the
+    gradient's leaves together (as the DIN test holds its updated
+    parameters), on the card against the CPU and a float64 evaluation on the
+    CPU (``checks.hold``); the processor blocks checkpointed, so the float
+    kernel runs n_layers + 2 times in the forward and n_layers more in the
+    backward."""
+    from repro_torch.launch import graphcast_weather as GW
+    from repro_torch.models.gnn import common as PC, graphcast
+    from repro_torch.models.gnn.steps import value_and_grad
+
+    cfg = get_smoke("graphcast")
+    params = graphcast.init_weather_params(cfg, 0, device="cpu")
+    outs = []
+    for dev, p in [(cuda, PC.params_to(params, cuda)), ("cpu", params),
+                   ("cpu", PC.params_to(params, dtype=torch.float64))]:
+        graph, layouts = GW.make_graph(cfg, dev)
+        state, target = GW.example_data(cfg, dev)
+        state = state.to(p["mesh_embed"].dtype)
+        before = sk.float_launches
+        with PC.plain_scatter() if p["mesh_embed"].dtype == torch.float64 else nullcontext():
+            loss, grads = value_and_grad(GW.weather_loss, p, cfg, state, target, graph, layouts)
+        if dev == cuda:
+            assert sk.float_launches - before == 2 * cfg.n_layers + 2
+        outs.append((loss, leaves(grads)))
+    _hold(*(o[0] for o in outs))
+    _hold(*(o[1] for o in outs))
 
 
 def _gnn(arch):
