@@ -18,7 +18,9 @@ multi-process paths (``kcore_decompose_sharded`` and the streaming engine on a m
 shards, and across gloo processes, each round's h-index and receivers on ``segment_sum``
 over the stacked local shards), LM serving
 (``launch.serve``, prefill attention
-on the flash-attention kernel), DIN (``launch.din_serve``, the context bag
+on the flash-attention kernel), LM training (``launch.train``'s pieces through
+``runtime.TrainDriver``: the embedding gather's backward on the float form of
+the segment-sum kernel, the trained weights served on the flash kernel), DIN (``launch.din_serve``, the context bag
 on the embedding-bag kernel) and the GNN family, forward and training
 (``models/gnn``: GraphCast's weather rollout and training loop through
 ``launch.graphcast_weather``, GraphCast's generic mode, SchNet, EGNN and MACE
@@ -68,8 +70,8 @@ of which must pass:
    batch.
 10. Full size, streaming: one engine built on SPR at scale 1.0 with a fused
    initial decomposition, cloned through ``state_dict`` into ``dense``,
-   ``compact``, ``fused`` and ``auto`` engines; two churn batches of one
-   stream (0.002, then 0.01 of the edges) applied to each: equal cores and
+   ``compact``, ``fused`` and ``auto`` engines; a churn batch of 0.002 of
+   the edges (``STREAM_CHURN``) applied to each: equal cores and
    per-round bills across the four, cores equal BZ after each batch,
    ``segment_sum`` launched in every mode; per mode and batch the phase
    walls and the staging share, rounds, messages and the ratio against a
@@ -84,7 +86,7 @@ of which must pass:
    mean ms a round, ``patch_ms`` and ``converge_ms``.
 12. Full size, temporal: SPR's temporal log (``temporal_snap_analogue("SPR",
    1.0, remove_frac=0.15)``, made from phase 6's graph), a count window of
-   3,000,000 events sliding 300,000 at a time in ``fused`` mode: filled in
+   1,500,000 events sliding 150,000 at a time in ``fused`` mode: filled in
    one advance of 10 strides, each boundary checked by ``check_step`` (edge
    set, engine graph, cores against BZ); per step the batch, rounds and
    messages against a fused from-scratch run, the phase walls, the
@@ -246,13 +248,33 @@ of which must pass:
    loss: a GraphCast-generic train step over phase 22's ``minibatch_lg``
    batch, two launches a layer, held against the plain scatter and float64
    on the card by the bf16 rule.
-24. The ``kernels`` JSON line, after each phase's wall: each kernel's
+24. LM training at ``qwen1.5-0.5b``'s full width (24 layers, d_model 1,024,
+   vocab 151,936; float32 weights drawn from seed 0). (a) One train step at
+   batch 1 x 128 on the card, in float32 on the card and on the CPU's bf16
+   route (in a thread of 6, beside (b) and (c)), from the same weights: the
+   loss, the grad norm and the updated parameters held by
+   ``checks.hold_bf16``, six named gradient leaves by the LM rule
+   (``checks.hold_bf16_noise``); ``steps.make_train_step`` gives the bits of
+   its parts. (b) The embedding gather's backward on the float kernel at the
+   step's shape (32,768 token rows of 1,024 into 151,936 table rows) and its
+   hottest row alone, timed as phase 22 times its shapes; then
+   ``TrainDriver`` at batch 8 x 4,096 (``train_4k``'s sequence): 2 steps, a
+   checkpoint after each, a failure injected after the first, a relaunch
+   that restores it and finishes, and the first run's in-memory state
+   stepped on with no save or restore: parameters, AdamW moments and count
+   and the step's loss bit-equal; ms a step, the peak, the losses, the
+   checkpoint's bytes and save and restore walls, one float kernel launch a
+   step. (c) The trained
+   weights through ``launch.serve``'s prefill on the flash kernel (24
+   launches) at 2 x 1,024: the last position's logits against
+   ``forward_hidden``'s and a float32 evaluation by the bf16 rule.
+25. The ``kernels`` JSON line, after each phase's wall: each kernel's
    launches in the main path's runs, its largest error against its plain
    version, its time a call and on the device (flash attention's under
    ``timed``), the plain version's, the library call's and the bound; the
    float form of the segment sum as its own entry, ``segment_sum_float``
    (the weather shape's numbers; every timed shape under ``timed``; its
-   launches include the training runs').
+   launches include the training runs', GNN and LM).
 
 It then prints the card line, the ``kernels`` JSON line and, last, the ``ok``
 line. It exits non-zero, without the ``ok`` line, if any check fails, if no
@@ -495,6 +517,7 @@ def serve_full_width(torch, dev, small: bool = False) -> int:
     then hold the card's route against the CPU's plain route at batch 1.
     Returns the flash kernel's launches in the measured serve run. ``small``
     (the CPU rehearsal) serves the SMOKE config at a short prompt instead."""
+    from repro_torch import checks
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve
@@ -551,21 +574,16 @@ def serve_full_width(torch, dev, small: bool = False) -> int:
     print(f"  batch 1, prompt 128 on the CPU in bf16 and in float32 (plain versions) in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    def dist(a, b):
-        return float((a.cpu().float() - b.cpu().float()).abs().max())
-
     for i, (got, want, ref) in enumerate(zip([card.prefill_logits] + card.step_logits,
                                              [plain.prefill_logits] + plain.step_logits,
                                              [exact.prefill_logits] + exact.step_logits)):
-        top = float(ref.abs().max())
-        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
-        noise = dist(want, ref)
-        tol = max(2 * noise, 2 * ulp)
-        err, err32 = dist(got, want), dist(got, ref)
-        check(err <= tol and err32 <= tol,
+        r = checks.hold_bf16_noise(got, want, ref)
+        ulp = r["ulp"]
+        check(r["ok"],
               f"{'prefill' if i == 0 else f'decode step {i}'} logits in bf16 ulps of max|logit| "
-              f"{top:.4g}: card vs CPU {err / ulp:.2f}, card vs float32 {err32 / ulp:.2f}, "
-              f"CPU vs float32 {noise / ulp:.2f}; tolerance {tol / ulp:.2f}")
+              f"{float(ref.abs().max()):.4g}: card vs CPU {r['err'] / ulp:.2f}, card vs float32 "
+              f"{r['err64'] / ulp:.2f}, CPU vs float32 {r['noise'] / ulp:.2f}; tolerance "
+              f"{r['tol'] / ulp:.2f}")
     del params, cpu_params, f32_params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -863,7 +881,9 @@ def din_full_width(torch, dev, small: bool = False) -> int:
 
 STATS = ("messages_per_round", "active_per_round", "changed_per_round")
 STREAM_MODES = ("dense", "compact", "fused", "auto")
-STREAM_CHURN = (0.002, 0.01)   # the full-size stream's two batches, as fractions of the edges
+# the full-size stream's batches, as fractions of the edges: a second, 0.01, was cut to keep the
+# smoke inside 1,200 s on a slow host (PERF.md section 4)
+STREAM_CHURN = (0.002,)
 
 
 def same_bills(a, b) -> bool:
@@ -1136,11 +1156,12 @@ def streaming_full(torch, dev, g, core_bz, launches):
     return err, first
 
 
-# the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 3,000,000
-# events (about 10 % of the stream) sliding 300,000 at a time (1 % of SPR's edges), filled in one
+# the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 1,500,000
+# events (about 5 % of the stream) sliding 150,000 at a time (0.5 % of SPR's edges), filled in one
 # advance of 10 strides and checkpointed, then one sliding advance taken by the window and by its
-# warm restart (so the whole smoke keeps inside its 1,200 s)
-TEMPORAL = {"remove_frac": 0.15, "window": 3_000_000, "stride": 300_000, "frontier": "fused"}
+# warm restart (so the whole smoke keeps inside its 1,200 s on a slow host: the window was
+# 3,000,000 events before, PERF.md section 4)
+TEMPORAL = {"remove_frac": 0.15, "window": 1_500_000, "stride": 150_000, "frontier": "fused"}
 # BatchResult fields that are walls (or builds) rather than accounting
 WALLS = ("patch_s", "seed_s", "converge_s", "reconstruct_s", "recompiles", "compile_s", "stage_s")
 
@@ -2196,9 +2217,16 @@ FLOAT_TOL = ("|kernel - plain| within twice the float32 summation bound gamma_(d
 
 
 def held(what: str, r: dict, rule: str) -> bool:
-    """Check a ``checks.hold`` (``rule`` "float32") or ``checks.hold_bf16``
-    ("bf16") result ``r``, printing its distances in units in the last place."""
+    """Check a ``checks.hold`` (``rule`` "float32"), ``checks.hold_bf16``
+    ("bf16") or ``checks.hold_bf16_noise`` ("bf16 noise") result ``r``,
+    printing its distances in units in the last place."""
     ulp = r["ulp"]
+    if rule == "bf16 noise":
+        return check(r["ok"], f"{what}, in bf16 ulps ({ulp:.3g}) of the largest magnitude: "
+                     f"card vs reference route {r['err'] / ulp:.2f}, card vs the more exact "
+                     f"evaluation {r['err64'] / ulp:.2f}, reference route vs it "
+                     f"{r['noise'] / ulp:.2f}; tolerance {r['tol'] / ulp:.2f} (twice the "
+                     f"reference route's noise, at least 2)")
     if rule == "bf16":
         return check(r["ok"], f"{what}, in bf16 ulps ({ulp:.3g}) of the largest magnitude: "
                      f"card vs the more exact evaluation {r['err64'] / ulp:.2f}, the "
@@ -2792,6 +2820,243 @@ def gnn_training(torch, np, dev, mb, smi, small: bool = False) -> int:
     return launches
 
 
+# the LM phase's shapes: the step held against the CPU; the driver's batch (train_4k's sequence
+# on one card's batch), 2 steps with a checkpoint after each and a failure after the first; the
+# trained weights' serve shape; the CPU route's threads while the card runs beside it
+LM = {"arch": "qwen1.5-0.5b", "seed": 0, "hold": (1, 128), "batch": 8, "seq": 4096, "steps": 2,
+      "ckpt_every": 1, "fail_at": 1, "serve": (2, 1024), "cpu_threads": 6}
+# gradient leaves held in 24a; ``bk`` is left out: a key bias shifts all of a query's scores
+# alike, so its exact gradient is 0 and both routes hold rounding noise there
+LM_GRAD_LEAVES = (("embed",), ("layers", "attn", "wq"), ("layers", "attn", "bq"),
+                  ("layers", "mlp", "w_down"), ("layers", "norm2"), ("norm_f",))
+
+
+def lm_training(torch, np, dev, st, smi, small: bool = False) -> tuple[int, int]:
+    """Phase 24: LM training at ``qwen1.5-0.5b``'s full width. (a) One
+    train step at batch 1 x 128 on the card, on the CPU's bf16 route (in a
+    thread, beside (b) and (c)) and in float32 on the card; (b) the
+    embedding scatter's timed shapes, then ``TrainDriver`` at 8 x 4096 with a
+    failure after its first checkpoint, a relaunch that restores and
+    finishes, and the first run's in-memory state stepped on without a save
+    or a restore, bit for bit; (c) the trained weights served through prefill
+    on the flash kernel against ``forward_hidden``. Returns the float
+    segment-sum kernel's launches and the flash kernel's in the main-path
+    runs. ``small`` (the CPU rehearsal) runs the SMOKE config at 2 x 64."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch import checks
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import synth_lm_batch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.launch import serve, train
+    from repro_torch.models.autodiff import value_and_grad
+    from repro_torch.models.transformer import model as M, steps
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_warmup
+    from repro_torch.runtime import HostFailure, TrainDriver, TrainDriverConfig, \
+        make_failure_injector
+    from repro_torch.tree import leaves
+
+    on_card = dev.type == "cuda"
+    card = smi.replace("\n", "; ") if smi else "no card"
+    cpu = torch.device("cpu")
+    cfg = (get_smoke if small else get_config)(LM["arch"])
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False          # the float32 evaluation is float32
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def batch(b, s, step, where):
+        t, lab = synth_lm_batch(cfg.vocab, b, s, seed=LM["seed"], step=step)
+        return torch.from_numpy(t).to(where), torch.from_numpy(lab).to(where)
+
+    def one_step(p, tok, lab, dtype):
+        """``make_train_step``'s body, keeping the gradient: [loss, grad norm,
+        the named gradient leaves] and the updated parameters, on p's device."""
+        loss, grads = value_and_grad(lambda q: M.lm_loss(q, cfg, tok, lab, dtype=dtype), p)
+        opt = adamw_init(p)
+        new, _, metrics = adamw_update(p, grads, opt, AdamWConfig(), cosine_warmup(
+            opt["count"], warmup=100, total=LM["steps"]))
+        out = [loss, metrics["grad_norm"]]
+        for path in LM_GRAD_LEAVES:
+            leaf = grads
+            for k in path:
+                leaf = leaf[k]
+            out.append(leaf)
+        return out, leaves(new)
+
+    # a. one step at 1 x 128 on the card, the CPU bf16 route in a thread, float32 on the card
+    t0 = time.perf_counter()
+    cpu_params = M.init_params(cfg, LM["seed"], device=cpu)
+    params = M.params_to(cpu_params, dev)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}; "
+          f"{sum(t.numel() for t in leaves(params))} float32 weights drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    b1, s1 = LM["hold"]
+    tok, lab = batch(b1, s1, 0, cpu)
+    plain, threads = {}, torch.get_num_threads()
+
+    def cpu_route():
+        t1 = time.perf_counter()
+        try:
+            plain["out"] = one_step(cpu_params, tok, lab, M.COMPUTE_DTYPE)
+        finally:
+            plain["s"] = time.perf_counter() - t1
+
+    if on_card:     # leave the card's launches and the driver's I/O cores of their own
+        torch.set_num_threads(min(threads, LM["cpu_threads"]))
+    worker = threading.Thread(target=cpu_route, daemon=True)
+    worker.start()
+    t1 = time.perf_counter()
+    kern = one_step(params, tok.to(dev), lab.to(dev), M.COMPUTE_DTYPE)
+    card_s = time.perf_counter() - t1
+    via_step = steps.make_train_step(cfg, total_steps=LM["steps"])(
+        params, adamw_init(params), tok.to(dev), lab.to(dev))
+    check(all(torch.equal(a, b) for a, b in zip(leaves(via_step[0]), kern[1]))
+          and torch.equal(via_step[2]["loss"], kern[0][0]),
+          f"steps.make_train_step at {b1} x {s1} gives the bits of value_and_grad + adamw_update")
+    del via_step
+    t1 = time.perf_counter()
+    f32 = one_step(params, tok.to(dev), lab.to(dev), torch.float32)
+    f32_s = time.perf_counter() - t1
+    print(f"  (a) one train step at {b1} x {s1}: card {card_s:.2f} s, float32 on the card "
+          f"{f32_s:.2f} s (the CPU bf16 route runs in a thread beside (b) and (c)); loss "
+          f"{float(kern[0][0]):.6f}, grad norm {float(kern[0][1]):.6f} ({card})")
+
+    # b. the embedding scatter's timed shapes, then TrainDriver at full width with a failure
+    t0 = time.perf_counter()
+    B, S = (2, 64) if small else (LM["batch"], LM["seq"])
+    tokens = batch(B, S, 0, dev)[0].reshape(-1)
+    counts = torch.bincount(tokens, minlength=cfg.vocab)
+    hot = int(counts.argmax())
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rows = torch.randn((tokens.numel(), cfg.d_model), generator=gen, device=dev)
+    float_case(torch, dev, st, rows, tokens, cfg.vocab,
+               f"LM embedding backward ({B} x {S} tokens)", timed=True)
+    float_case(torch, dev, st, rows[tokens == hot].contiguous(),
+               torch.zeros(int(counts[hot]), dtype=torch.int64, device=dev), 1,
+               "the LM embedding's hottest row alone", timed=True)
+    print(f"  (b) token {hot} takes {int(counts[hot])} of the {tokens.numel()} positions "
+          f"({int(counts[hot]) / tokens.numel():.1%}); {int((counts > 0).sum())} rows of "
+          f"{cfg.vocab} touched")
+    del rows, tokens, counts
+    step_fn = train.make_step_fn(cfg, LM["steps"])
+    batch_fn = train.make_batch_fn(cfg.vocab, B, S, LM["seed"], dev)
+    ckdir = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        conf = TrainDriverConfig(total_steps=LM["steps"], checkpoint_every=LM["ckpt_every"],
+                                 checkpoint_dir=ckdir, log_every=1)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        sk.float_launches = 0
+        first = TrainDriver(step_fn, [params, adamw_init(params)], batch_fn, conf,
+                            failure_injector=make_failure_injector(LM["fail_at"]))
+        del params
+        failed = False
+        try:
+            first.run()
+        except HostFailure:
+            failed = True
+        ck_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*") if f.is_file())
+        second = TrainDriver(step_fn, first.state, batch_fn, conf)   # restores over this
+        report = second.run()
+        # the uninterrupted run: the first run's in-memory state, stepped on with no save or restore
+        sync()
+        t1 = time.perf_counter()
+        state, m = step_fn(first.state, batch_fn(first.step))
+        sync()
+        loop_ms = (time.perf_counter() - t1) * 1e3
+        n_float = sk.float_launches
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        n_steps = len(first.step_times) + len(second.step_times) + 1
+        step_ms = [t * 1e3 for t in first.step_times + second.step_times] + [loop_ms]
+        losses = [x["loss"] for x in first.metrics_log + second.metrics_log]
+        print(f"  (b) {cfg.name} at {B} x {S} through TrainDriver: a failure injected at step "
+              f"{LM['fail_at']} after the checkpoint of step {LM['fail_at']} ({failed}), a relaunch "
+              f"restored it and finished step {report['final_step']}; the first run's in-memory "
+              f"state stepped on beside it; steps {', '.join(f'{t:.1f}' for t in step_ms)} ms "
+              f"({sum(step_ms[1:]) / len(step_ms[1:]):.1f} ms a step after the first); peak device "
+              f"memory {peak} bytes; losses {', '.join(f'{x:.6f}' for x in losses)}; checkpoint "
+              f"{ck_bytes} bytes, saves {', '.join(f'{t:.2f}' for t in first.save_walls + second.save_walls)} s, "
+              f"restore {second.restore_wall or 0.0:.2f} s; float kernel launches {n_float} in "
+              f"{n_steps} steps ({n_float / n_steps:.1f} a step) ({card})")
+        check(failed and second.restore_wall is not None and report["final_step"] == LM["steps"],
+              f"the driver failed at step {LM['fail_at']}, restored step {LM['fail_at']} and "
+              f"finished step {LM['steps']}")
+        check(all(math.isfinite(x) for x in losses), f"{len(losses)} training losses finite")
+        check(second.metrics_log[-1]["loss"] == float(m["loss"]),
+              f"the restarted step's logged loss bit-equal to the uninterrupted run's "
+              f"({second.metrics_log[-1]['loss']!r} == {float(m['loss'])!r})")
+        check(all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in zip(leaves(second.state), leaves(state))),
+              "after the restart: parameters, AdamW moments and count bit-equal to the "
+              "uninterrupted run's")
+        if on_card:
+            check(n_float == n_steps * max(cfg.train_microbatches, 1),
+                  f"one float kernel launch a step, the embedding gather's backward ({n_float} == "
+                  f"{n_steps})")
+        params = second.state[0]
+        del first, second, state, m, report
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"  (b) in {time.perf_counter() - t0:.1f} s")
+
+    # c. the trained weights served through prefill on the flash kernel
+    t0 = time.perf_counter()
+    sb, ss = (2, 64) if small else LM["serve"]
+    prompts = batch(sb, ss, 99, dev)[0].long()
+    fa.launches = 0
+    served = serve.generate(M.cast_params(params), cfg, prompts, 1).prefill_logits
+    n_flash = fa.launches
+    with torch.no_grad():
+        h, _ = M.forward_hidden(params, cfg, prompts)
+        ref = M.logits_from_hidden(params, cfg, h[:, -1:])[:, 0].float()
+        h, _ = M.forward_hidden(params, cfg, prompts, dtype=torch.float32)
+        exact = M.logits_from_hidden(params, cfg, h[:, -1:])[:, 0]
+    if on_card:
+        check(n_flash == cfg.n_layers, f"the trained weights' prefill launched the flash kernel "
+              f"once a layer ({n_flash} == {cfg.n_layers})")
+    held(f"the trained weights served at {sb} x {ss}: prefill's last-position logits (flash "
+         f"kernel) against forward_hidden's (the training attention, reference route) and a "
+         f"float32 evaluation", checks.hold_bf16(served, ref, exact), "bf16")
+    del params, served, ref, exact, prompts, h
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"  (c) in {time.perf_counter() - t0:.1f} s")
+
+    # a, held: the CPU route's thread joined
+    t0 = time.perf_counter()
+    worker.join()
+    torch.set_num_threads(threads)
+    check("out" in plain, f"the CPU bf16 route's step at {b1} x {s1} ran ({plain['s']:.2f} s, "
+          f"in a thread of {LM['cpu_threads'] if on_card else threads} threads)")
+    if "out" in plain:      # compared on the card, where the card's results are
+        plain["out"] = [[x.to(dev) for x in part] for part in plain["out"]]
+        names = ["loss", "grad norm"] + ["grads" + "".join(f"[{k!r}]" for k in p)
+                                         for p in LM_GRAD_LEAVES]
+        for i, name in enumerate(names):
+            what = (f"{cfg.name} train step at {b1} x {s1}, {name}: card against the CPU bf16 "
+                    f"route (reference route) and a float32 evaluation")
+            if i < 2:
+                held(what, checks.hold_bf16(kern[0][i], plain["out"][0][i], f32[0][i]), "bf16")
+            else:   # a gradient leaf after 24 bf16 layers: the LM rule (PERF.md section 2)
+                held(what, checks.hold_bf16_noise(kern[0][i], plain["out"][0][i], f32[0][i]),
+                     "bf16 noise")
+        held(f"{cfg.name} train step at {b1} x {s1}, updated parameters: card against the CPU "
+             f"bf16 route and a float32 evaluation", checks.hold_bf16(kern[1], plain["out"][1],
+                                                                        f32[1]), "bf16")
+    del kern, f32, plain, cpu_params
+    print(f"  (a) held in {time.perf_counter() - t0:.1f} s; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return n_float, n_flash
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -3185,7 +3450,16 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     del mb
 
     # ------------------------------------------------------------------ #
-    phase("24. kernels")
+    phase(f"24. LM training: {LM['arch']} at full width, one step held against the CPU, "
+          f"TrainDriver at {LM['batch']} x {LM['seq']} with a failure and a restart, the trained "
+          f"weights served through prefill")
+    n_float, n_flash = lm_training(torch, np, dev, stats["segment_sum_float"], smi,
+                                   small=device != "cuda")
+    launches["segment_sum_float"] += n_float
+    launches["flash_attention"] += n_flash
+
+    # ------------------------------------------------------------------ #
+    phase("25. kernels")
     print("phase walls: " + "; ".join(f"{title.split(':')[0].split('.')[0]} {wall:.1f} s"
                                       for title, _, wall in phase_walls[:-1]))
     kernels = []

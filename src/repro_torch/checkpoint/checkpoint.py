@@ -18,14 +18,26 @@ The manifest's ``treedef`` is a description for readers; restoring takes
 the structure from ``like``. Each restored leaf takes the kind of its
 ``like`` leaf: a tensor comes back as a tensor on that tensor's device,
 anything else as a numpy array.
+
+A restore reads the members of ``arrays.npz`` (stored uncompressed, as
+``np.savez`` writes them in both packages) in place from a memory map,
+checking each one's CRC-32 in a pool of threads while the arrays are copied
+out, instead of streaming them through ``np.load``: the same arrays and the
+same integrity check, several times faster for the multi-GB state of a
+full-width LM. A compressed member is refused.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import io
 import json
 import os
 import pathlib
 import shutil
+import struct
+import zipfile
+import zlib
 
 import numpy as np
 import torch
@@ -98,11 +110,67 @@ def restore_checkpoint(directory: str | os.PathLike, like, step: int | None = No
             raise FileNotFoundError(f"no checkpoint in {d}")
     final = d / f"step_{step:09d}"
     like_leaves = leaves(like)
-    with np.load(final / "arrays.npz") as data:
-        if len(like_leaves) != len(data.files):
-            raise ValueError(f"leaf count mismatch: ckpt {len(data.files)} "
-                             f"vs target {len(like_leaves)}")
-        out = [data[f"leaf_{i}"] for i in range(len(like_leaves))]
-    out = [torch.as_tensor(a, device=ref.device) if isinstance(ref, torch.Tensor) else a
-           for a, ref in zip(out, like_leaves)]
-    return unflatten(like, out), step
+    path = final / "arrays.npz"
+    members = _stored_members(path)
+    if len(like_leaves) != len(members):
+        raise ValueError(f"leaf count mismatch: ckpt {len(members)} "
+                         f"vs target {len(like_leaves)}")
+    return unflatten(like, _read_stored(path, members, like_leaves)), step
+
+
+def _stored_members(path) -> dict:
+    """``{name: (offset, size, crc)}`` of the data of each member of the zip
+    archive at ``path``; a compressed member raises ``ValueError``."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"{path}: {info.filename} is compressed; checkpoints are "
+                                 f"written by np.savez, uncompressed")
+            f.seek(info.header_offset)
+            head = f.read(30)
+            if head[:4] != b"PK\x03\x04":
+                raise ValueError(f"{path}: bad local header for {info.filename}")
+            name_len, extra_len = struct.unpack("<HH", head[26:30])
+            out[info.filename] = (info.header_offset + 30 + name_len + extra_len,
+                                  info.file_size, info.CRC)
+    return out
+
+
+def _npy_view(raw: np.ndarray) -> np.ndarray:
+    """The array an ``.npy`` image ``raw`` (uint8) holds, as a view of it."""
+    fp = io.BytesIO(raw[:min(raw.size, 1 << 16)].tobytes())
+    version = np.lib.format.read_magic(fp)
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read_header(fp)
+    if dtype.hasobject:
+        raise ValueError("object arrays are not checkpoint leaves")
+    n = int(np.prod(shape)) * dtype.itemsize
+    flat = raw[fp.tell():fp.tell() + n].view(dtype)
+    return flat.reshape(shape, order="F" if fortran else "C")
+
+
+def _read_stored(path, members: dict, like_leaves: list) -> list:
+    """Each ``leaf_i`` of the stored archive at ``path`` as its ``like``
+    leaf's kind, read from a memory map; every member's CRC-32 is checked
+    (in threads, which ``zlib`` lets run without the interpreter lock)."""
+    buf = np.memmap(path, dtype=np.uint8, mode="c")
+    spans = [members[f"leaf_{i}.npy"] for i in range(len(like_leaves))]
+
+    def crc_ok(span):
+        off, size, crc = span
+        return zlib.crc32(buf[off:off + size]) == crc
+
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        crcs = pool.map(crc_ok, spans)
+        out = []
+        for (off, size, _), ref in zip(spans, like_leaves):
+            a = _npy_view(buf[off:off + size])
+            out.append(torch.from_numpy(a).to(ref.device, copy=True)
+                       if isinstance(ref, torch.Tensor) else np.array(a))
+        bad = [i for i, ok in enumerate(crcs) if not ok]
+    del buf
+    if bad:
+        raise ValueError(f"{path}: CRC-32 mismatch in leaf_{bad[0]}")
+    return out

@@ -1,5 +1,5 @@
 """Comparisons that hold a result on the card against the CPU: the
-tolerance rule for float32 results, the rule for bf16 results, the bound
+tolerance rule for float32 results, the two rules for bf16 results, the bound
 two float segment sums of the same terms keep, and a top-k compared
 allowing for ties. ``chip_smoke.py`` and the tests use them; no serving
 path does."""
@@ -13,6 +13,13 @@ import torch
 
 def _as_list(x) -> list:
     return x if isinstance(x, list) else [x]
+
+
+def _dist(xs: list, ys: list) -> float:
+    """The largest |x - y| over the pairs, in float64 on each x's device (a
+    pair on the card is compared there)."""
+    return max(float((x.detach().double() - y.detach().to(x.device).double()).abs().max())
+               if x.numel() else 0.0 for x, y in zip(xs, ys))
 
 
 def tolerance(cpu, f64) -> tuple[float, float]:
@@ -38,13 +45,9 @@ def hold(card, cpu, f64) -> dict:
     card, cpu, f64 = _as_list(card), _as_list(cpu), _as_list(f64)
     tol, ulp = tolerance(cpu, f64)
 
-    def dist(xs, ys):
-        return max(float((x.detach().cpu().double() - y.detach().cpu().double()).abs().max())
-                   for x, y in zip(xs, ys))
-
-    err, err64 = dist(card, cpu), dist(card, f64)
+    err, err64 = _dist(card, cpu), _dist(card, f64)
     return {"ok": err <= tol and err64 <= tol, "err": err, "err64": err64,
-            "noise": dist(cpu, f64), "tol": tol, "ulp": ulp}
+            "noise": _dist(cpu, f64), "tol": tol, "ulp": ulp}
 
 
 def check_topk(vals, idx, ref_scores, tol: float) -> dict:
@@ -90,14 +93,28 @@ def hold_bf16(out, ref, f64) -> dict:
     vs ref), ``ulp`` and ``ok``."""
     out, ref, f64 = _as_list(out), _as_list(ref), _as_list(f64)
 
-    def dist(xs, ys):
-        return max(float((x.detach().cpu().double() - y.detach().cpu().double()).abs().max())
-                   if x.numel() else 0.0 for x, y in zip(xs, ys))
+    ulp = bf16_ulp(max(float(y.detach().abs().max()) if y.numel() else 0.0 for y in f64))
+    err64, ref64 = _dist(out, f64), _dist(ref, f64)
+    return {"ok": err64 <= ref64 + ulp, "err64": err64, "ref64": ref64, "err": _dist(out, ref),
+            "ulp": ulp}
+
+
+def hold_bf16_noise(out, ref, f64) -> dict:
+    """The LM rule for bf16 results: ``out`` within ``tol`` of the reference
+    route ``ref`` and of the more exact evaluation ``f64``, where ``tol`` is
+    twice ``ref``'s distance from ``f64`` and at least two bf16 ulps of the
+    largest magnitude of ``f64`` (a route as accurate as the reference's is
+    within twice its noise of either). Each argument is a tensor or a list
+    of them. Returns the distances (``err``: out vs ref, ``err64``: out vs
+    f64, ``noise``: ref vs f64), ``tol``, ``ulp`` and ``ok``."""
+    out, ref, f64 = _as_list(out), _as_list(ref), _as_list(f64)
 
     ulp = bf16_ulp(max(float(y.detach().abs().max()) if y.numel() else 0.0 for y in f64))
-    err64, ref64 = dist(out, f64), dist(ref, f64)
-    return {"ok": err64 <= ref64 + ulp, "err64": err64, "ref64": ref64, "err": dist(out, ref),
-            "ulp": ulp}
+    noise = _dist(ref, f64)
+    tol = max(2 * noise, 2 * ulp)
+    err, err64 = _dist(out, ref), _dist(out, f64)
+    return {"ok": err <= tol and err64 <= tol, "err": err, "err64": err64, "noise": noise,
+            "tol": tol, "ulp": ulp}
 
 
 def segment_sum_excess(vals: torch.Tensor, ids: torch.Tensor, n: int, got: torch.Tensor,

@@ -2,7 +2,7 @@
 ``repro.configs.registry``).
 
 The port holds the configs of the architectures it runs: the dense LMs
-``qwen1.5-0.5b`` (served at full width), and ``yi-34b`` (GQA) and
+``qwen1.5-0.5b`` (served and trained at full width), and ``yi-34b`` (GQA) and
 ``granite-34b`` (MQA, GELU MLP), whose ``SMOKE`` variants the tests use;
 the recommender ``din`` (trained, served and retrieved at full width); and
 the GNNs ``schnet``, ``egnn``, ``mace`` and ``graphcast``, whose forward

@@ -95,7 +95,7 @@ def train(params: dict, cfg: GNNConfig, graph: dict, layouts: dict, steps: int,
     """The example's loop: ``steps`` AdamW steps (default lr 1e-3, weight
     decay 0) of ``weather_loss``, the state advanced by ``next_state`` after
     each; each step timed to its end (a synchronize on the card)."""
-    from repro_torch.models.gnn.steps import value_and_grad
+    from repro_torch.models.autodiff import value_and_grad
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
     opt_cfg = opt_cfg or AdamWConfig(lr=1e-3, weight_decay=0.0)

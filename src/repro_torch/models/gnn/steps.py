@@ -20,11 +20,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import GNNConfig, ShapeSpec
+from repro_torch.models.autodiff import value_and_grad
 from repro_torch.models.gnn import egnn, graphcast, mace, schnet
 from repro_torch.models.gnn.common import dst_layout, graph_layout, scatter_sum, set_flat_sharding
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.platform import resolve_device
-from repro_torch.tree import leaves, map_tree, unflatten
 
 _MODELS = {"mace": mace, "schnet": schnet, "egnn": egnn, "graphcast": graphcast}
 
@@ -92,17 +92,6 @@ def _energy_loss(params: dict, cfg: GNNConfig, batch: dict, n_graphs: int,
     else:
         e = mod.energy(params, cfg, batch, n_graphs, layout=layout, pool=pool)
     return torch.mean((_wide(e) - batch["labels"]) ** 2)
-
-
-def value_and_grad(loss_fn, params, *args):
-    """``(loss, grads)`` of ``loss_fn(params, *args)``, ``grads`` shaped as
-    ``params``; a leaf the loss does not reach gets zeros, as in JAX."""
-    with torch.enable_grad():
-        live = map_tree(lambda p: p.detach().requires_grad_(True), params)
-        loss = loss_fn(live, *args)
-        grads = torch.autograd.grad(loss, leaves(live), allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves(live), grads)]
-    return loss.detach(), unflatten(params, grads)
 
 
 def make_train_step(cfg: GNNConfig, shape: ShapeSpec, opt_cfg: AdamWConfig | None = None):

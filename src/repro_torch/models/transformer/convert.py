@@ -1,11 +1,14 @@
-"""Carry weights into the port: the first weight carrier.
+"""Carry weights and optimizer state into the port: the first weight carrier.
 
 ``params_from_jax(tree)`` takes the reference's parameter pytree (the key
 layout of ``repro.models.transformer.model.init_params``, stacked ``(L, ...)``
 leaves) with its leaves as numpy arrays, as ``jax.tree.map(np.asarray,
 params)`` gives them, and returns the port's parameter tree of torch
-tensors. Nothing of JAX is imported: numpy arrays are the interface. With a
-``cfg`` the tree's keys and shapes are checked against ``model.param_spec``.
+tensors. ``opt_state_from_jax(tree)`` does the same for the reference's
+AdamW state ``{"m", "v", "count"}``, so a JAX step and a port step can start
+from the same state. Nothing of JAX is imported: numpy arrays are the
+interface. With a ``cfg`` the trees' keys and shapes are checked against
+``model.param_spec``.
 """
 
 from __future__ import annotations
@@ -49,3 +52,16 @@ def params_from_jax(tree: dict, cfg: LMConfig | None = None, device=None) -> dic
         return {k: walk(v) if isinstance(v, dict) else _leaf(v, dev) for k, v in node.items()}
 
     return walk(tree)
+
+
+def opt_state_from_jax(tree: dict, cfg: LMConfig | None = None, device=None) -> dict:
+    """The reference's AdamW state ``{"m", "v", "count"}`` (numpy leaves) ->
+    the port's on ``device`` (the card unless ``"cpu"``), dtypes kept: the
+    moments as ``params_from_jax`` carries parameters, ``count`` a 0-d
+    tensor."""
+    if set(tree) != {"m", "v", "count"}:
+        raise ValueError(f"opt state: keys {sorted(tree)} != ['count', 'm', 'v']")
+    if np.shape(tree["count"]) != ():
+        raise ValueError(f"opt state: count must be a scalar, got shape {np.shape(tree['count'])}")
+    return {"m": params_from_jax(tree["m"], cfg, device), "v": params_from_jax(tree["v"], cfg, device),
+            "count": _leaf(tree["count"], resolve_device(device))}

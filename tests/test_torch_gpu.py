@@ -8,7 +8,9 @@ the card against the CPU and their snapshots, serving through the flash kernel
 against the same weights served on the CPU, DIN through the
 embedding-bag kernel against the CPU and a float64 evaluation, and the GNNs
 on the float segment sum (its backward, the models and a weather training
-step) against the CPU.
+step) against the CPU, and LM training (the gradient, the embedding
+gather's backward on the float kernel, the driver's restart, the trained
+weights served on the flash kernel) against the CPU and itself.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is present;
 the file imports neither ``jax`` nor the reference, so it runs on a machine
@@ -803,3 +805,133 @@ def test_weather_rollout_on_the_card_matches_the_cpu(cuda):
         if dev == cuda:
             assert sk.float_launches - before == 3 * (cfg.n_layers + 2)
     _hold(*outs)
+
+
+# ------------------------------ LM training ------------------------------- #
+
+def _lm_step(cfg, params, tokens, labels, dtype=torch.bfloat16):
+    from repro_torch.models.autodiff import value_and_grad
+    from repro_torch.models.transformer import model as M
+
+    return value_and_grad(lambda p: M.lm_loss(p, cfg, tokens, labels, dtype=dtype), params)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-34b", "granite-34b"])
+def test_lm_gradient_on_the_card_matches_the_cpu(cuda, arch):
+    """The SMOKE LMs' loss and gradient on the card against the CPU bf16
+    route and a float32 evaluation on the card (``checks.hold_bf16``, leaf by
+    leaf but ``bk``, whose exact gradient is 0); one float kernel launch, the
+    embedding gather's backward."""
+    from repro_torch.data import synth_lm_batch
+    from repro_torch.models.transformer import model as M
+
+    cfg = get_smoke(arch)
+    params = M.init_params(cfg, 0, device="cpu")
+    t, lab = (torch.from_numpy(a) for a in synth_lm_batch(cfg.vocab, 4, 48, seed=0, step=0))
+    before = sk.float_launches
+    card = _lm_step(cfg, M.params_to(params, cuda), t.to(cuda), lab.to(cuda))
+    assert sk.float_launches - before == 1
+    plain = _lm_step(cfg, params, t, lab)
+    exact = _lm_step(cfg, M.params_to(params, cuda), t.to(cuda), lab.to(cuda), torch.float32)
+    assert checks.hold_bf16(card[0], plain[0], exact[0])["ok"]
+    for path, a, b, c in zip(_flat(card[1]), leaves(card[1]), leaves(plain[1]),
+                             leaves(exact[1])):
+        if "bk" not in path:
+            assert checks.hold_bf16(a, b, c)["ok"], path
+
+
+def _flat(tree, prefix=""):
+    return [p for k in sorted(tree) for p in (_flat(tree[k], f"{prefix}/{k}")
+                                              if isinstance(tree[k], dict) else [f"{prefix}/{k}"])]
+
+
+def test_lm_embedding_backward_on_the_card_is_bit_equal_to_the_cpu(cuda):
+    """The gather's backward on the float kernel adds each row's terms in
+    token order, as ``index_add_`` does on the CPU: bit-equal to the CPU,
+    Zipf tokens with a hot row among them."""
+    from repro_torch.data import synth_lm_batch
+    from repro_torch.models.transformer import model as M
+
+    tokens = torch.from_numpy(synth_lm_batch(4096, 8, 256, seed=0, step=0)[0])
+    r = np.random.default_rng(1)
+    table = torch.from_numpy(r.standard_normal((4096, 96)).astype(np.float32))
+    g = torch.from_numpy(r.standard_normal((8, 256, 96)).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        t = table.to(dev).requires_grad_(True)
+        before = sk.float_launches
+        M._EmbedGather.apply(t, tokens.to(dev)).backward(g.to(dev))
+        assert sk.float_launches - before == (1 if dev == cuda else 0)
+        grads.append(t.grad.cpu())
+    assert torch.equal(*grads)
+
+
+def test_lm_driver_restart_on_the_card_is_bit_exact(cuda, tmp_path):
+    """The SMOKE LM through ``TrainDriver`` on the card: fail at step 3 after
+    the checkpoint of step 2, relaunch, finish step 4; every leaf of the
+    state and every logged loss equal an uninterrupted run's."""
+    from repro_torch.launch import train
+    from repro_torch.runtime import HostFailure, TrainDriver, TrainDriverConfig, \
+        make_failure_injector
+
+    cfg = get_smoke("qwen1.5-0.5b")
+
+    def driver(ckdir, fail_at=None):
+        return TrainDriver(train.make_step_fn(cfg, 4), train.make_state(cfg, 0, cuda),
+                           train.make_batch_fn(cfg.vocab, 4, 64, 0, cuda),
+                           TrainDriverConfig(total_steps=4, checkpoint_every=2,
+                                             checkpoint_dir=str(ckdir), log_every=1),
+                           failure_injector=make_failure_injector(fail_at) if fail_at else None)
+
+    ref = driver(tmp_path / "ref")
+    want = ref.run()
+    first = driver(tmp_path / "fail", 3)
+    with pytest.raises(HostFailure):
+        first.run()
+    second = driver(tmp_path / "fail")
+    second.run()
+    assert [m["loss"] for m in first.metrics_log[:2] + second.metrics_log] == \
+        [m["loss"] for m in want["metrics"]]
+    for a, b in zip(leaves(second.state), leaves(ref.state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_lm_trained_weights_served_on_the_flash_kernel(cuda):
+    """Weights after 3 card steps, served through prefill on the flash
+    kernel: the last position's logits against ``forward_hidden``'s by the
+    bf16 rule against a float32 evaluation; one flash launch a layer."""
+    from repro_torch.data import synth_lm_batch
+    from repro_torch.models.transformer import model as M, steps as S
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_smoke("qwen1.5-0.5b")
+    params = M.init_params(cfg, 0, device=cuda)
+    opt = adamw_init(params)
+    step = S.make_train_step(cfg, AdamWConfig(lr=3e-3, weight_decay=0.0), total_steps=3)
+    for i in range(3):
+        t, lab = (torch.from_numpy(a).to(cuda) for a in synth_lm_batch(cfg.vocab, 4, 64, seed=0,
+                                                                       step=i))
+        params, opt, _ = step(params, opt, t, lab)
+    prompts = torch.from_numpy(synth_lm_batch(cfg.vocab, 2, 96, seed=0, step=9)[0]).long().to(cuda)
+    before = fa.launches
+    served = serve.generate(params, cfg, prompts, 1).prefill_logits
+    assert fa.launches - before == cfg.n_layers
+    with torch.no_grad():
+        h, _ = M.forward_hidden(params, cfg, prompts)
+        ref = M.logits_from_hidden(params, cfg, h[:, -1:])[:, 0].float()
+        h, _ = M.forward_hidden(params, cfg, prompts, dtype=torch.float32)
+        exact = M.logits_from_hidden(params, cfg, h[:, -1:])[:, 0]
+    assert checks.hold_bf16(served, ref, exact)["ok"]
+
+
+def test_train_launcher_on_the_card_profiles_a_step(cuda, tmp_path, capsys):
+    """``launch.train`` at SMOKE on the card: the reference's line last, the
+    card's line before it, and ``--profile``'s record of one more step."""
+    from repro_torch.launch import train
+
+    train.main(["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "10", "--batch", "2", "--seq",
+                "64", "--ckpt-dir", str(tmp_path), "--profile"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1].startswith("arch=qwen1.5-0.5b-smoke steps=10 loss: ")
+    assert lines[-2].startswith("device: ") and "peak device memory" in lines[-2]
+    assert lines[0].startswith("one more step at 2 x 64: wall ") and "kernel launches" in lines[0]

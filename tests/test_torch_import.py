@@ -42,7 +42,10 @@ for name in ("repro_torch.temporal", "repro_torch.temporal.events", "repro_torch
              "repro_torch.models.gnn.schnet", "repro_torch.models.gnn.egnn",
              "repro_torch.models.gnn.graphcast", "repro_torch.models.gnn.mace",
              "repro_torch.models.gnn.steps", "repro_torch.models.gnn.convert",
-             "repro_torch.launch.graphcast_weather"):
+             "repro_torch.launch.graphcast_weather", "repro_torch.data",
+             "repro_torch.data.pipeline", "repro_torch.runtime", "repro_torch.runtime.driver",
+             "repro_torch.models.transformer.steps", "repro_torch.models.autodiff",
+             "repro_torch.launch.train", "repro_torch.launch.train_lm_e2e"):
     assert name in names, name
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
@@ -170,3 +173,20 @@ def test_sharded_combinations_equal_the_reference():
         rtraj = jax_temporal.replay(rlog, 10, 5, config=jcfg, mesh=jmesh)
         assert [(r.messages, r.mode) for r in traj.records] == \
             [(r.messages, r.mode) for r in rtraj.records]
+
+
+def test_training_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
+    """Without a card and without ``--device cpu`` the training launchers
+    fail; with ``--device cpu`` the data, driver and train step run there."""
+    from repro_torch.launch import train, train_lm_e2e
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in [(train.main, ["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1"]),
+                       (train_lm_e2e.main, ["--steps", "2"])]:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([*argv, "--ckpt-dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
+    with pytest.raises(SystemExit, match="no loss was logged"):
+        train.main(["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1", "--batch", "2",
+                    "--seq", "8", "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck")])
+    assert (tmp_path / "ck" / "step_000000001").is_dir()
