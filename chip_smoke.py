@@ -18,7 +18,8 @@ multi-process paths (``kcore_decompose_sharded`` and the streaming engine on a m
 shards, and across gloo processes, each round's h-index and receivers on ``segment_sum``
 over the stacked local shards), LM serving
 (``launch.serve``, prefill attention
-on the flash-attention kernel), LM training (``launch.train``'s pieces through
+on the flash-attention kernel, MoE and windowed models among them: the MoE
+dispatch's backward on the float form of the segment-sum kernel), LM training (``launch.train``'s pieces through
 ``runtime.TrainDriver``: the embedding gather's backward on the float form of
 the segment-sum kernel, the trained weights served on the flash kernel), DIN (``launch.din_serve``, the context bag
 on the embedding-bag kernel) and the GNN family, forward and training
@@ -86,7 +87,7 @@ of which must pass:
    mean ms a round, ``patch_ms`` and ``converge_ms``.
 12. Full size, temporal: SPR's temporal log (``temporal_snap_analogue("SPR",
    1.0, remove_frac=0.15)``, made from phase 6's graph), a count window of
-   1,500,000 events sliding 150,000 at a time in ``fused`` mode: filled in
+   750,000 events sliding 75,000 at a time in ``fused`` mode: filled in
    one advance of 10 strides, each boundary checked by ``check_step`` (edge
    set, engine graph, cores against BZ); per step the batch, rounds and
    messages against a fused from-scratch run, the phase walls, the
@@ -176,10 +177,13 @@ of which must pass:
 20. Full size, out of core (``repro_torch.core.outofcore``): the scale
    benchmark's headline configuration (``benchmarks/scale_decomposition.py``:
    the LJ1 analogue at a 10^6-vertex target under a 64 MiB block-cache
-   budget) and SPR (phase 6's graph and BZ cores) under 256 MiB, each
-   through ``outofcore_decompose`` on the card: cores equal BZ, cores, rounds
-   and every per-round bill equal an in-memory fused run (phase 6's for
-   SPR), at least one eviction, ``device_block_bytes`` below the arc arrays'
+   budget) and SPR (phase 6's graph) under 256 MiB, each through
+   ``outofcore_decompose`` on the card. LJ1 runs to convergence: its cores
+   equal BZ and its cores, rounds and per-round bills the in-memory fused
+   run's. SPR stops after ``OOC_ROUNDS`` (5) of its 50 rounds: its
+   estimates and per-round bills equal an in-memory fused run stopped
+   there, its bills the first rounds of phase 6's converged run; at least one
+   eviction, ``device_block_bytes`` below the arc arrays'
    bytes and the card's measured peak (``max_memory_allocated`` less the
    allocation at entry) below them too, ``segment_sum`` launched; per graph
    the geometry, the I/O bill, rounds, messages and walls, a split of round 1
@@ -268,13 +272,42 @@ of which must pass:
    weights through ``launch.serve``'s prefill on the flash kernel (24
    launches) at 2 x 1,024: the last position's logits against
    ``forward_hidden``'s and a float32 evaluation by the bf16 rule.
-25. The ``kernels`` JSON line, after each phase's wall: each kernel's
+25. MoE and sliding-window attention (budget 75 s). (a) ``qwen2-moe-a2.7b``
+   at full width and depth (24 layers, 60 experts padded to 64, top 4, 4
+   shared; 15.15B weights drawn on the card in bf16) through
+   ``launch.serve``: batch 8, prompt 2,048, 32 tokens; prefill ms, decode
+   ms a token, tok/s, the peak, 24 flash launches, the selections capacity
+   dropped, and the same run under ``torch.profiler``. (b) The same widths
+   at 2 layers, batch 1 x 128, prefill and 4 decode steps on the card, on
+   the CPU's bf16 route and in float32 on the card, the latter two on the
+   card's experts (``generate(forced_routes=)``): the router's log-
+   probabilities by the LM rule and the top-K experts call by call (a token
+   whose experts differ must be a near-tie: the card's logit margin there
+   within that rule's tolerance; ``route_check``), the logits by the LM
+   rule; at 1 layer a train step's loss, aux and gradient norm by
+   ``checks.hold_bf16`` (no AdamW update: at count 0 it moves no weight by
+   a bf16 ulp), the CPU's in a thread beside (c) and (d). (c)
+   ``mixtral-8x22b`` at full width, 2 of 56 layers: a prompt of 9,000 (P %
+   4,096 = 808) into a 4,096-slot rolling cache, every slot held bit for
+   bit against the k and v prefill computed for its position, 16 decode
+   steps past the roll, layer 0's decode attention against the plain
+   windowed attention over all positions' k and v; the windowed flash
+   kernel at this shape held against ``attention_ref`` (one key-value
+   head's group of query heads at a time) and its float32 evaluation by the
+   bf16 rule in blocks of 1,000 query rows, timed beside SDPA with the same
+   boolean mask and its kernels' names. (d) One Mixtral train step at full
+   width, 1 layer, 1 x 9,216 (loss and gradient, no optimizer; 2 float
+   kernel launches), its sliced training attention against the unsliced
+   masked one and float32, and the float kernel timed at the step's
+   dispatch backward.
+26. The ``kernels`` JSON line, after each phase's wall: each kernel's
    launches in the main path's runs, its largest error against its plain
    version, its time a call and on the device (flash attention's under
    ``timed``), the plain version's, the library call's and the bound; the
    float form of the segment sum as its own entry, ``segment_sum_float``
    (the weather shape's numbers; every timed shape under ``timed``; its
-   launches include the training runs', GNN and LM).
+   launches include the training runs', GNN and LM, and the Mixtral train
+   step's dispatch backward).
 
 It then prints the card line, the ``kernels`` JSON line and, last, the ``ok``
 line. It exits non-zero, without the ``ok`` line, if any check fails, if no
@@ -1156,12 +1189,12 @@ def streaming_full(torch, dev, g, core_bz, launches):
     return err, first
 
 
-# the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 1,500,000
-# events (about 5 % of the stream) sliding 150,000 at a time (0.5 % of SPR's edges), filled in one
+# the full-size temporal run: SPR's log with 15 % link-decay removals, a count window of 750,000
+# events (about 2 % of the stream) sliding 75,000 at a time (0.25 % of SPR's edges), filled in one
 # advance of 10 strides and checkpointed, then one sliding advance taken by the window and by its
 # warm restart (so the whole smoke keeps inside its 1,200 s on a slow host: the window was
-# 3,000,000 events before, PERF.md section 4)
-TEMPORAL = {"remove_frac": 0.15, "window": 1_500_000, "stride": 150_000, "frontier": "fused"}
+# 3,000,000 and then 1,500,000 events before, PERF.md section 4)
+TEMPORAL = {"remove_frac": 0.15, "window": 750_000, "stride": 75_000, "frontier": "fused"}
 # BatchResult fields that are walls (or builds) rather than accounting
 WALLS = ("patch_s", "seed_s", "converge_s", "reconstruct_s", "recompiles", "compile_s", "stage_s")
 
@@ -1799,6 +1832,10 @@ def serve_cli(dev) -> None:
 # A), and the CLI on the card
 OOC_LJ1 = {"abbrev": "LJ1", "vertices": 1_000_000, "mem_budget": 64 << 20}
 OOC_SPR_BUDGET = 256 << 20
+# SPR out of core stops after this many of its 50 rounds (1.8-2.6 s each; LJ1 runs its 36 to
+# convergence, still checked against BZ); its estimates and bills are held against an in-memory
+# fused run stopped there, and against the first rounds of phase 6's converged run
+OOC_ROUNDS = 5
 OOC_CLI = ("--graph", "FC", "--scale", "0.05", "--out-of-core", "--mem-budget", "4194304",
            "--json")
 
@@ -1852,11 +1889,15 @@ def ooc_round_split(torch, dev, store, deg, mem_budget):
     return walls, int(live.sum()), held
 
 
-def ooc_run(torch, dev, label, g, core_bz, inmem, mem_budget, launches) -> int:
+def ooc_run(torch, dev, label, g, core_bz, inmem, mem_budget, launches,
+            max_rounds: int | None = None) -> int:
     """One full-size out-of-core run on the card: cores against BZ, rounds and
     bills against the in-memory fused run ``inmem``, the I/O bill, the card's
     measured peak against the arc arrays' bytes, then a round split and
-    ``segment_sum`` held on the widest block's slice. Returns its error."""
+    ``segment_sum`` held on the widest block's slice. With ``max_rounds`` the
+    run stops there: its estimates and bills are held against an in-memory
+    fused run stopped at the same round, and its bills against the first
+    rounds of the converged run ``inmem``. Returns its error."""
     import shutil
     import tempfile
 
@@ -1876,8 +1917,8 @@ def ooc_run(torch, dev, label, g, core_bz, inmem, mem_budget, launches) -> int:
         base = torch.cuda.memory_allocated() if on_card else 0
         hk.launches = sk.launches = 0
         t0 = time.perf_counter()
-        res = outofcore_decompose(g, mem_budget=mem_budget, store_dir=tmp, keep_store=True,
-                                  device=dev)
+        res = outofcore_decompose(g, mem_budget=mem_budget, max_rounds=max_rounds,
+                                  store_dir=tmp, keep_store=True, device=dev)
         wall = time.perf_counter() - t0
         launches["segment_sum"] += sk.launches
         launches["kcore_hindex"] += hk.launches
@@ -1898,11 +1939,27 @@ def ooc_run(torch, dev, label, g, core_bz, inmem, mem_budget, launches) -> int:
               f"{sk.launches}, kcore_hindex {hk.launches}")
         print(f"    in-memory fused run: {inmem.rounds} rounds, {inmem.stats.total_messages} "
               f"messages, phase_s {({k: round(v, 4) for k, v in inmem.phase_s.items()})}")
-        check(np.array_equal(res.core, core_bz) and res.converged,
-              f"{label} out of core: cores equal BZ")
-        check(np.array_equal(res.core, inmem.core) and same_bills(res, inmem),
-              f"{label} out of core: cores, rounds and per-round bills equal the in-memory fused "
-              f"run's")
+        if max_rounds is None:
+            check(np.array_equal(res.core, core_bz) and res.converged,
+                  f"{label} out of core: cores equal BZ")
+            check(np.array_equal(res.core, inmem.core) and same_bills(res, inmem),
+                  f"{label} out of core: cores, rounds and per-round bills equal the in-memory "
+                  f"fused run's")
+        else:
+            from repro_torch.core.kcore import KCoreConfig, kcore_decompose
+
+            t0 = time.perf_counter()
+            cut = kcore_decompose(g, KCoreConfig(max_rounds=max_rounds), fused=True, device=dev)
+            print(f"    in-memory fused run stopped at round {max_rounds} in "
+                  f"{time.perf_counter() - t0:.1f} s; the converged run took {inmem.rounds} rounds")
+            check(res.rounds == cut.rounds == max_rounds and not res.converged
+                  and np.array_equal(res.core, cut.core) and same_bills(res, cut),
+                  f"{label} out of core stopped at round {max_rounds} of {inmem.rounds}: "
+                  f"estimates and per-round bills equal an in-memory fused run stopped there")
+            check(all(np.array_equal(getattr(res.stats, k), getattr(inmem.stats, k)
+                                     [:len(getattr(res.stats, k))]) for k in STATS),
+                  f"{label} out of core: its {max_rounds} rounds' bills equal the first rounds of "
+                  f"the converged in-memory run")
         check(st.evictions >= 1 and st.device_block_bytes < st.total_arc_bytes,
               f"{label} out of core: {st.evictions} evictions, device_block_bytes "
               f"{st.device_block_bytes} < total_arc_bytes {st.total_arc_bytes}")
@@ -1959,11 +2016,12 @@ def out_of_core_full(torch, dev, g_spr, core_spr, spr_fused, spr_scale, launches
     print(f"  LJ1 analogue at scale {OOC_LJ1['vertices'] * cut / entry.n:.6f}: generated in "
           f"{t_gen:.1f} s, BZ in {t_bz:.1f} s; in-memory fused run {fused.rounds} rounds, device "
           f"peak {peak}, launches kcore_hindex {hk.launches}, segment_sum {sk.launches}")
-    check(fused.converged and (fused.core == core_bz).all(), "LJ1 in memory (fused): cores equal BZ")
+    check(fused.converged and (fused.core == core_bz).all(),
+          "LJ1 in memory (fused): cores equal BZ")
     err = ooc_run(torch, dev, "LJ1", g, core_bz, fused, int(OOC_LJ1["mem_budget"] * cut), launches)
     del g, core_bz, fused
     err = max(err, ooc_run(torch, dev, "SPR", g_spr, core_spr, spr_fused,
-                           int(OOC_SPR_BUDGET * cut), launches))
+                           int(OOC_SPR_BUDGET * cut), launches, max_rounds=OOC_ROUNDS))
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     argv = [sys.executable, "-m", "repro_torch.launch.kcore_run", *OOC_CLI]
@@ -3057,6 +3115,480 @@ def lm_training(torch, np, dev, st, smi, small: bool = False) -> tuple[int, int]
     return n_float, n_flash
 
 
+# MoE and the sliding window: qwen2-moe-a2.7b served at full width and depth, then cut to 2 and 1
+# layers against the CPU; mixtral-8x22b at full width, 2 of its 56 layers, past its window's roll;
+# one Mixtral train step at full width, 1 layer. The phase's budget is 75 s.
+MOE = {"arch": "qwen2-moe-a2.7b", "seed": 0, "batch": 8, "prompt": 2048, "gen": 32,
+       "hold": (1, 128), "hold_layers": 2, "train_layers": 1, "cpu_threads": 6,
+       "swa_arch": "mixtral-8x22b", "swa_layers": 2, "swa_prompt": 9000, "swa_gen": 16,
+       "swa_train": (1, 9216), "budget_s": 75.0}
+
+
+def route_check(torch, card: list, cpu: list, f32: list, K: int, n_experts: int) -> dict:
+    """Hold the card's routing against the CPU bf16 route's, call by call
+    (``generate``'s ``routes`` records; the CPU route and the float32
+    evaluation ran on the card's experts, so no earlier difference moves
+    their inputs). The router's log-probabilities over the real experts are held by the LM
+    rule: the card within ``tol`` of the CPU route, ``tol`` twice the CPU
+    route's distance from the float32 evaluation. A token whose set of top-K
+    experts on the CPU (its own top K) differs from the card's is a
+    near-tie that rounding may order either way only where the card's logit
+    margin log(p_K / p_(K+1)) there is within ``tol``. Returns ``ok``, the
+    tokens compared, the largest distance over ``tol``, and the flips as
+    (call, row, token, margin, tol)."""
+    n, ratio, flips, ok = 0, 0.0, [], True
+    for c, (a, b, e) in enumerate(zip(card, cpu, f32)):
+        la, lb, le = (torch.log(r["probs"][..., :n_experts].cpu().double()) for r in (a, b, e))
+        tol = 2 * float((lb - le).abs().max())
+        err = float((la - lb).abs().max())
+        ok = ok and err <= tol
+        ratio = max(ratio, err / tol) if tol else (math.inf if err > 0 else ratio)
+        mine = a["gate_i"].cpu().sort(-1).values
+        own = torch.topk(b["probs"].cpu(), K, dim=-1).indices.sort(-1).values
+        diff = (mine != own).any(-1)
+        n += diff.numel()
+        if diff.any():
+            top = torch.topk(a["probs"].cpu().double(), K + 1, dim=-1).values
+            margin = torch.log(top[..., K - 1] / top[..., K])
+            for i, j in diff.nonzero().tolist():
+                flips.append((c, i, j, round(float(margin[i, j]), 6), round(tol, 6)))
+                ok = ok and float(margin[i, j]) <= tol
+    return {"ok": ok, "n": n, "ratio": ratio, "flips": flips}
+
+
+def moe_and_window(torch, np, dev, st_flash, st_float, smi, small: bool = False) -> tuple[int, int]:
+    """Phase 25: MoE and sliding-window attention. (a) ``qwen2-moe-a2.7b`` at
+    full width and depth, bf16 weights drawn on the card, served at 8 x 2,048
+    + 32 through ``launch.serve``; (b) the same model cut to 2 layers at 1 x
+    128 (prefill and 4 decode steps) on the card, the CPU's bf16 route and
+    a float32 evaluation on the card, routing compared call by call; cut to 1
+    layer, a train step's loss and gradient, the CPU's in a thread beside (c)
+    and (d); (c)
+    ``mixtral-8x22b`` at full width, 2 of 56 layers: a prompt of 9,000 past
+    its window of 4,096, the rolling cache checked slot by slot, 16 decode
+    steps past the roll, layer 0's decode attention against the plain
+    windowed attention over the whole sequence, the windowed flash kernel
+    timed beside SDPA with the same mask; (d) one Mixtral train step at full
+    width, 1 layer, 1 x 9,216 (loss and gradient), its sliced training
+    attention against the unsliced one, and the float kernel timed at its
+    dispatch's backward. Returns the flash kernel's launches and the float
+    segment sum's in the main-path runs. ``small`` (the CPU rehearsal) runs
+    the SMOKE configs at small shapes."""
+    import dataclasses
+    import threading
+
+    import torch.nn.functional as F
+
+    from repro_torch import checks
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import synth_lm_batch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.launch import serve
+    from repro_torch.models.autodiff import value_and_grad
+    from repro_torch.models.transformer import model as M
+    from repro_torch.obs.profile import format_profile, profile_call
+    from repro_torch.tree import leaves, map_tree
+
+    on_card = dev.type == "cuda"
+    card = smi.replace("\n", "; ") if smi else "no card"
+    cpu = torch.device("cpu")
+    bf16 = M.COMPUTE_DTYPE
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False     # routes and the float32 evaluations
+    n_flash = n_float = 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if on_card else 0
+
+    def draw(c, dtype):
+        """``c``'s weights from the seed: drawn on the card a layer at a time,
+        or on the CPU in the rehearsal (bf16 in ``cast_params``' form)."""
+        if on_card:
+            return M.init_params(c, MOE["seed"], dtype=dtype, device=dev, on_device=True)
+        p = M.init_params(c, MOE["seed"], device=cpu)
+        return M.cast_params(p) if dtype == bf16 else p
+
+    # a. qwen2-moe-a2.7b at full width and depth through launch.serve
+    t0 = time.perf_counter()
+    cfg = (get_smoke if small else get_config)(MOE["arch"])
+    params = serve.make_params(cfg, MOE["seed"], dev)
+    sync()
+    n_weights = sum(t.numel() for t in leaves(params))
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"  (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.moe.n_experts} "
+          f"experts padded to {cfg.moe.e_pad}, top {cfg.moe.top_k}, {cfg.moe.n_shared} shared, "
+          f"expert width {cfg.moe.d_ff_expert}, vocab {cfg.vocab}: {n_weights} weights "
+          f"({w_bytes} bytes) drawn on the {'card' if on_card else 'CPU'} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    B, P, G = MOE["batch"], MOE["prompt"] // (16 if small else 1), MOE["gen"]
+    prompts = serve.make_prompts(cfg, B, P, dev)
+    serve.generate(params, cfg, prompts, 2)          # warm-up: cuBLAS handles, the allocator
+    peak_reset()
+    fa.launches = 0
+    trace = []
+    res = serve.generate(params, cfg, prompts, G, routes=trace)
+    launches = fa.launches
+    n_flash += launches
+    pk = peak()
+    wall = res.prefill_s + res.decode_s
+    pre = trace[:cfg.n_layers]
+    dropped = sum(int((~r["keep"]).sum()) for r in pre)
+    selected = sum(r["keep"].numel() for r in pre)
+    decode_dropped = sum(int((~r["keep"]).sum()) for r in trace[cfg.n_layers:])
+    T = P + G
+    cache_bytes = 2 * cfg.n_layers * B * cfg.n_kv_heads * T * cfg.d_head * 2
+    print(f"  (a) served {B} x {P} + {G}: prefill {res.prefill_s * 1e3:.3f} ms "
+          f"({B * P / res.prefill_s:.1f} prompt tok/s); decode {res.decode_ms_per_token:.3f} ms a "
+          f"token ({B * (G - 1) / res.decode_s:.1f} tok/s over {G - 1} steps); {B * G / wall:.1f} "
+          f"tok/s end to end ({wall:.3f} s); peak device memory {pk} bytes (weights {w_bytes}, a "
+          f"{T}-slot cache {cache_bytes}); flash launches {launches}; selections dropped by "
+          f"capacity in prefill {dropped} of {selected} ({dropped / selected:.2%}; C = "
+          f"{pre[0]['C']} a batch row), in decode {decode_dropped} ({card})")
+    print(f"  (a) sample: {res.tokens[0][:12].tolist()}")
+    if on_card:
+        prof = serve.profile_serve(params, cfg, prompts, 4)
+        print("  (a) under torch.profiler (same shapes, after the measured run; 3 decode steps):")
+        print("\n".join("    " + line for line in format_profile(prof).splitlines()))
+    logits = res.prefill_logits
+    check(res.tokens.shape == (B, G) and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
+          and tuple(logits.shape) == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} served {B} x {G} tokens in range, prefill logits ({B}, {cfg.vocab}) finite")
+    check(len(trace) == cfg.n_layers * G and decode_dropped == 0,
+          f"{cfg.name}: {len(trace)} MoE calls ({cfg.n_layers} a pass), no decode selection "
+          f"dropped (C = 1 at S = 1)")
+    if on_card:
+        check(launches == cfg.n_layers,
+              f"{cfg.name}'s prefill launched the flash kernel once a layer ({launches} == "
+              f"{cfg.n_layers})")
+    del params, res, trace, pre, logits, prompts
+    print(f"  (a) in {time.perf_counter() - t0:.1f} s")
+
+    # b. the same widths at 2 layers on the card, the CPU and float32 on the card; 1 layer trained
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=MOE["hold_layers"])
+    params = draw(cfg2, bf16)
+    cpu_params = M.params_to(params, cpu)
+    f32 = map_tree(lambda t: t.float(), params)
+    prompt1 = serve.make_prompts(cfg2, *MOE["hold"], cpu)
+    G1 = 5
+    # the CPU route and the float32 evaluation take the card's experts and tokens (forced), so
+    # that their arithmetic is held like for like; their own routers' choices are compared apart
+    got_trace, plain_trace, exact_trace = [], [], []
+    got = serve.generate(params, cfg2, prompt1.to(dev), G1, keep_logits=True, routes=got_trace)
+    t1 = time.perf_counter()
+    plain = serve.generate(cpu_params, cfg2, prompt1, G1, forced=got.tokens, keep_logits=True,
+                           routes=plain_trace, forced_routes=got_trace)
+    cpu_s = time.perf_counter() - t1
+    exact = serve.generate(f32, cfg2, prompt1.to(dev), G1, forced=got.tokens, keep_logits=True,
+                           dtype=torch.float32, routes=exact_trace, forced_routes=got_trace)
+    K = cfg2.moe.top_k
+    r = route_check(torch, got_trace, plain_trace, exact_trace, K, cfg2.moe.n_experts)
+    n32 = sum(int((r32["gate_i"].cpu().sort(-1).values != torch.topk(
+        r32["probs"].cpu(), K, dim=-1).indices.sort(-1).values).any(-1).sum())
+        for r32 in exact_trace)
+    check(len(got_trace) == len(plain_trace) == cfg2.n_layers * G1 and r["ok"],
+          f"{cfg2.name} at {cfg2.n_layers} layers, {MOE['hold'][0]} x {MOE['hold'][1]} + "
+          f"{G1 - 1} steps, {r['n']} token routings: the card's router log-probabilities within "
+          f"the LM rule of the CPU bf16 route's ({cpu_s:.1f} s; largest distance {r['ratio']:.2f} "
+          f"of its tolerance, twice the CPU route's distance from float32); the top-{K} experts "
+          + ("identical" if not r["flips"] else
+             f"differ at {len(r['flips'])} token(s), each a near-tie within the tolerance (call, "
+             f"row, token, the card's logit margin between its K-th and next expert, tolerance): "
+             f"{r['flips'][:12]}") + f"; the float32 evaluation's own top {K} differs from the "
+          f"card's at {n32}")
+    for i, (a, b, c) in enumerate(zip([got.prefill_logits] + got.step_logits,
+                                      [plain.prefill_logits] + plain.step_logits,
+                                      [exact.prefill_logits] + exact.step_logits)):
+        held(f"{cfg2.name} at {cfg2.n_layers} layers, {'prefill' if i == 0 else f'decode step {i}'}"
+             f" logits: card against the CPU bf16 route (reference route) and a float32 "
+             f"evaluation on the card, both on the card's experts",
+             checks.hold_bf16_noise(a, b, c), "bf16 noise")
+    del params, cpu_params, f32, got, plain, exact, got_trace, plain_trace, exact_trace
+
+    cfg1 = dataclasses.replace(cfg, n_layers=MOE["train_layers"])
+    p32 = draw(cfg1, torch.float32)
+    cpu32 = M.params_to(p32, cpu)
+    tok, lab = (torch.from_numpy(a) for a in synth_lm_batch(cfg1.vocab, *MOE["hold"],
+                                                            seed=MOE["seed"], step=0))
+
+    def one_step(p, t, lb, dtype):
+        """A train step's loss (0.01 x aux included), aux and gradient norm.
+        Its AdamW update is left out: at count 0 the warmup scales the
+        learning rate to 3e-6, which moves no weight by a bf16 ulp, and on
+        the CPU it took as long as the gradient."""
+        loss, grads = value_and_grad(lambda q: M.lm_loss(q, cfg1, t, lb, dtype=dtype), p)
+        with torch.no_grad():
+            aux = M.forward_hidden(p, cfg1, t, dtype)[1]
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                     for g in leaves(grads)]))
+        return [loss, aux, norm]
+
+    step_cpu, threads = {}, torch.get_num_threads()
+
+    def cpu_route():
+        t1 = time.perf_counter()
+        try:
+            step_cpu["out"] = one_step(cpu32, tok, lab, bf16)
+        finally:
+            step_cpu["s"] = time.perf_counter() - t1
+
+    if on_card:     # leave the card's launches their own cores
+        torch.set_num_threads(min(threads, MOE["cpu_threads"]))
+    worker = threading.Thread(target=cpu_route, daemon=True)
+    worker.start()
+    step_card = one_step(p32, tok.to(dev), lab.to(dev), bf16)
+    step_f32 = one_step(p32, tok.to(dev), lab.to(dev), torch.float32)
+    del p32
+    print(f"  (b) in {time.perf_counter() - t0:.1f} s, the CPU's train step of {cfg1.name} at "
+          f"{cfg1.n_layers} layer in a thread beside (c) and (d); card loss "
+          f"{float(step_card[0]):.6f}, aux {float(step_card[1]):.6f}")
+
+    # c. mixtral-8x22b at full width, 2 of its layers, past the roll of its window
+    t0 = time.perf_counter()
+    cfgm = dataclasses.replace((get_smoke if small else get_config)(MOE["swa_arch"]),
+                               n_layers=MOE["swa_layers"])
+    win = cfgm.swa_window
+    Pm, Gm = (72, MOE["swa_gen"]) if small else (MOE["swa_prompt"], MOE["swa_gen"])
+    peak_reset()
+    params = draw(cfgm, bf16)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    prompt = serve.make_prompts(cfgm, 1, Pm, dev)
+    cache = M.init_kv_cache(cfgm, 1, Pm + Gm, device=dev)
+    T = cache["k"].shape[3]
+    fa.launches = 0
+    sync()
+    t1 = time.perf_counter()
+    logits, cache = M.prefill(params, cfgm, prompt, cache=cache)
+    sync()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    n_flash += fa.launches
+    check(fa.launches == (cfgm.n_layers if on_card else 0) and T == win,
+          f"{cfgm.name} at {cfgm.n_layers} layers: prefill of {Pm} ({Pm % win} past a multiple "
+          f"of the window {win}) into a {T}-slot rolling cache, {fa.launches} flash launches")
+    full = {k: torch.zeros((cfgm.n_layers, 1, cfgm.n_kv_heads, Pm, cfgm.d_head), dtype=bf16,
+                           device=dev) for k in ("k", "v")}
+    M.prefill(params, cfgm, prompt, cache=full)       # every position at slot p
+    held_pos = torch.arange(Pm - T, Pm, device=dev)
+    same = all(torch.equal(cache[k][:, :, :, held_pos % T], full[k][:, :, :, held_pos])
+               for k in ("k", "v"))
+    check(same, f"every layer's slot s of the rolling cache holds, bit for bit, the k and v "
+          f"prefill computed for the position p = s (mod {T}) in [{Pm - T}, {Pm - 1}]")
+    tok_m = logits.argmax(dim=-1, keepdim=True)
+    sync()
+    t1 = time.perf_counter()
+    for i in range(Gm):
+        step, cache = M.decode_step(params, cfgm, tok_m, cache, Pm + i)
+        if i < Gm - 1:
+            tok_m = step.argmax(dim=-1, keepdim=True)
+    sync()
+    decode_ms = (time.perf_counter() - t1) * 1e3 / Gm
+    pos = Pm + Gm - 1
+    check(bool(torch.isfinite(step).all()),
+          f"{Gm} decode steps past the roll (positions {Pm}-{pos}, slots {Pm % T}-{pos % T}): "
+          f"logits finite; prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms a token, "
+          f"weights {w_bytes} bytes, peak device memory {peak()} bytes ({card})")
+    # layer 0's decode attention at the last step against the plain windowed attention of the
+    # same query over the whole sequence's k and v (prefill's for the prompt, decode's after)
+    lp = M.unstack_layers(params["layers"], cfgm.n_layers)[0]
+    h = M.rmsnorm(M._embed(params, tok_m, bf16), lp["norm1"], cfgm.norm_eps)
+    posb = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    dec_slots = torch.arange(Pm, pos + 1, device=dev) % T
+    seq = {k: torch.cat([full[k][0], cache[k][0][:, :, dec_slots]], dim=2) for k in ("k", "v")}
+    with torch.no_grad():
+        dec, _ = M.attention(h, lp["attn"], cfgm, posb, cache_pos=pos,
+                             kv_cache={k: cache[k][0].clone() for k in ("k", "v")})
+        outs = []
+        for dtype in (bf16, torch.float32):
+            attn = map_tree(lambda t: t.to(dtype), lp["attn"])
+            q, _, _ = M._qkv(h.to(dtype), attn, cfgm, posb)
+            o = M._attention_scores(q, seq["k"].transpose(1, 2).to(dtype),
+                                    seq["v"].transpose(1, 2).to(dtype), posb,
+                                    torch.arange(pos + 1, device=dev), win)
+            outs.append(torch.matmul(o.reshape(1, 1, -1), attn["wo"]))
+    held(f"layer 0's decode attention at position {pos} over the {T}-slot rolling cache against "
+         f"the plain windowed attention of the same query over all {pos + 1} positions' k and v, "
+         f"and its float32 evaluation", checks.hold_bf16(dec, outs[0], outs[1]), "bf16")
+    del full, seq, cache, params, logits, step, outs, dec
+    # the windowed flash kernel at this prefill's shape against its plain version, and timed
+    # beside SDPA with the same boolean mask
+    gen = torch.Generator(device=dev).manual_seed(25)
+    hq, hkv, dh = cfgm.n_heads, cfgm.n_kv_heads, cfgm.d_head
+    q = torch.randn((1, Pm, hq, dh), generator=gen, device=dev).to(bf16)
+    k = torch.randn((1, Pm, hkv, dh), generator=gen, device=dev).to(bf16)
+    v = torch.randn((1, Pm, hkv, dh), generator=gen, device=dev).to(bf16)
+    pairs = sum(min(i + 1, win) for i in range(Pm))
+    flop = 4 * hq * dh * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    bnd = max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    out = fa.flash_attention(q, k, v, causal=True, window=win)
+    # held against the plain version on the same inputs: one key-value head's group of query
+    # heads at a time ((6, 9000, 9000) float32 scores), in bf16 and in float32, each block of
+    # rows by the bf16 rule at its own largest magnitude (a row past the window averages 4,096
+    # values of v, and is far smaller than the first rows)
+    rep, rows = hq // hkv, 1000
+    want, exact = torch.empty_like(out), torch.empty(out.shape, device=dev)
+    for h in range(hkv):
+        qg = q[0, :, h * rep:(h + 1) * rep].transpose(0, 1)
+        kg, vg = k[0, :, h:h + 1].transpose(0, 1), v[0, :, h:h + 1].transpose(0, 1)
+        want[0, :, h * rep:(h + 1) * rep] = fa.attention_ref(qg, kg, vg, window=win).transpose(0, 1)
+        exact[0, :, h * rep:(h + 1) * rep] = fa.attention_ref(
+            qg.float(), kg.float(), vg.float(), window=win).transpose(0, 1)
+    r_out, ok_out = None, True
+    for b0 in range(0, Pm, rows):
+        blk = slice(b0, b0 + rows)
+        r = checks.hold_bf16(out[:, blk], want[:, blk], exact[:, blk])
+        r.update(ratio=r["err64"] / (r["ref64"] + r["ulp"]), block=f"{b0}-{min(b0 + rows, Pm) - 1}",
+                 top=float(exact[:, blk].abs().max()))
+        ok_out = ok_out and r["ok"]
+        if r_out is None or r["ratio"] > r_out["ratio"]:
+            r_out = r
+    err = float((out.float() - want.float()).abs().max())
+    err_late = float((out[:, win:].float() - want[:, win:].float()).abs().max())
+    top_late = float(exact[:, win:].abs().max())
+    st_flash["err"] = max(st_flash["err"], err)
+    del want, exact
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=win), 10)
+    dev_ms = device_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True, window=win), 5,
+                       "flash_")
+    qp = torch.arange(Pm, device=dev)
+    mask = (qp[None, :] <= qp[:, None]) & (qp[None, :] > qp[:, None] - win)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(hq // hkv, dim=2),
+                                              v.repeat_interleave(hq // hkv, dim=2)))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    lib = time_ms(torch, sdpa, 10)
+    lib_dev = device_ms(torch, sdpa, 5, "sdpa")      # its attention kernel alone
+    lib_err = float((sdpa().transpose(1, 2).float() - out.float()).abs().max())
+    backend = "not measured on the CPU"
+    for _ in range(3 if on_card else 0):     # the trace comes back empty now and then
+        _, rec = profile_call(sdpa, dev, top=3)
+        backend = "; ".join(name[:80] for name, _, _ in rec["top"])
+        if backend:
+            break
+    st_flash.setdefault("timed", {})["mixtral windowed prefill"] = dict(
+        ms=ms, device_ms=dev_ms, library_ms=lib, library_device_ms=lib_dev, bound_ms=bnd,
+        tflops=flop / ms / 1e9, library_kernels=backend)
+    check(ok_out,
+          f"flash_attention at {cfgm.name}'s prefill (1 x {Pm}, {hq} over {hkv} heads, d {dh}, "
+          f"causal, window {win}; {pairs} pairs) against attention_ref and its float32 "
+          f"evaluation, in blocks of {rows} query rows, each by the bf16 rule (the kernel's "
+          f"distance from float32 at most attention_ref's + 1 bf16 ulp of the block's largest "
+          f"magnitude): worst block {r_out['block']} (|out| up to {r_out['top']:.3g}): kernel "
+          f"{r_out['err64']:.3g}, attention_ref {r_out['ref64']:.3g}, ulp {r_out['ulp']:.3g} "
+          f"({r_out['ratio']:.2f} of its allowance); max|kernel - attention_ref| {err:.3g} over "
+          f"all rows, {err_late:.3g} over rows {win} on (|out| up to {top_late:.3g}); "
+          f"{ms:.4f} ms a call ({flop / ms / 1e9:.1f} TFLOP/s; {dev_ms or 0.0:.4f} ms on the "
+          f"device), scaled_dot_product_attention with the boolean window mask {lib:.4f} ms a "
+          f"call ({lib_dev or 0.0:.4f} ms in its attention kernel on the device; the costliest "
+          f"kernels of a call: {backend}; max|SDPA - kernel| {lib_err:.3g}), bound {bnd:.4f} ms "
+          f"({flop:.4g} FLOP, {nbytes} bytes), {bnd / ms:.1%} of it ({card})")
+    del q, k, v, qt, kt, vt, mask, out
+    print(f"  (c) in {time.perf_counter() - t0:.1f} s")
+
+    # d. one Mixtral train step at full width, 1 layer: loss and gradient; its sliced attention
+    t0 = time.perf_counter()
+    cfgt = dataclasses.replace(cfgm, n_layers=1)
+    bt, stl = (1, 1024) if small else MOE["swa_train"]
+    peak_reset()
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    p32 = draw(cfgt, torch.float32)
+    tt, lt = (torch.from_numpy(a).to(dev) for a in synth_lm_batch(cfgt.vocab, bt, stl,
+                                                                  seed=MOE["seed"], step=0))
+    sk.float_launches = 0
+    sync()
+    t1 = time.perf_counter()
+    loss, grads = value_and_grad(lambda p: M.lm_loss(p, cfgt, tt, lt), p32)
+    sync()
+    step_ms = (time.perf_counter() - t1) * 1e3
+    n_train_float = sk.float_launches
+    n_float += n_train_float
+    step_peak = peak() - base
+    gnorm = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                        for g in leaves(grads)])))
+    check(math.isfinite(float(loss)) and math.isfinite(gnorm)
+          and n_train_float == (1 + cfgt.n_layers if on_card else 0),
+          f"{cfgt.name} train step at full width, {cfgt.n_layers} layer, {bt} x {stl} (no "
+          f"optimizer): loss {float(loss):.6f} (0.01 x aux included), grad norm {gnorm:.6f}, "
+          f"{step_ms:.1f} ms, peak device memory {step_peak} bytes above the {base} held at entry, "
+          f"float kernel launches {n_train_float} (the embedding's and each layer's dispatch "
+          f"backward) ({card})")
+    del grads
+    with torch.no_grad():
+        lp = M.unstack_layers(p32["layers"], 1)[0]
+        x = M.rmsnorm(M._embed(p32, tt, bf16), lp["norm1"], cfgt.norm_eps)
+        posn = torch.arange(stl, device=dev)
+        sync()
+        t1 = time.perf_counter()
+        sliced = M.train_attention(x, lp["attn"], cfgt, posn)
+        sync()
+        sliced_ms = (time.perf_counter() - t1) * 1e3
+        # the unsliced yardstick: every chunk against all S keys, the window as a mask
+        q, kk, vv = M._qkv(x, lp["attn"], cfgt, posn)
+        rep = cfgt.n_heads // cfgt.n_kv_heads
+        kf, vf = kk.repeat_interleave(rep, dim=2), vv.repeat_interleave(rep, dim=2)
+        qf = q.reshape(bt, stl, cfgt.n_heads, cfgt.d_head)
+        qc = min(512, stl) if stl % min(512, stl) == 0 else stl
+        t1 = time.perf_counter()
+        whole = torch.cat([M._attention_scores_mha(qf[:, c:c + qc], kf, vf, posn[c:c + qc], posn,
+                                                   win) for c in range(0, stl, qc)], dim=1)
+        whole = torch.matmul(whole.reshape(bt, stl, -1), lp["attn"]["wo"].to(bf16))
+        sync()
+        whole_ms = (time.perf_counter() - t1) * 1e3
+        exact = M.train_attention(x.float(), lp["attn"], cfgt, posn)
+    sliced_keys = M._key_window(1, qc, stl, win)
+    held(f"{cfgt.name}'s training attention at {bt} x {stl} (chunks of {qc} queries each against "
+         f"{'the ' + str(qc + win) + ' keys its window reaches' if sliced_keys else 'all keys'}; "
+         f"{sliced_ms:.1f} ms) against the unsliced masked attention ({whole_ms:.1f} ms) and a "
+         f"float32 evaluation", checks.hold_bf16(sliced, whole, exact), "bf16")
+    check(sliced_keys is not None or small,
+          f"{cfgt.name} at {stl} slices its keys: chunk 1 reads keys {sliced_keys}")
+    del x, q, kk, vv, kf, vf, qf, sliced, whole, exact, p32
+    # the float kernel at this step's dispatch backward: K x virtual_split rows a token
+    per = cfgt.moe.top_k * cfgt.moe.virtual_split
+    rows = torch.randn((bt * stl * per, cfgt.d_model), generator=gen, device=dev).to(bf16)
+    float_case(torch, dev, st_float, rows,
+               torch.arange(bt * stl, device=dev).repeat_interleave(per), bt * stl,
+               f"MoE dispatch backward ({cfgt.name}, {bt} x {stl}, {per} slot rows a token)",
+               timed=True)
+    del rows
+    print(f"  (d) in {time.perf_counter() - t0:.1f} s")
+
+    # b, held: the CPU's train step joined
+    t0 = time.perf_counter()
+    worker.join()
+    torch.set_num_threads(threads)
+    check("out" in step_cpu, f"the CPU bf16 route's train step of {cfg1.name} at "
+          f"{cfg1.n_layers} layer ran ({step_cpu['s']:.2f} s)")
+    if "out" in step_cpu:
+        for i, name in enumerate(["loss", "aux", "grad norm"]):
+            held(f"{cfg1.name} train step at full width, {cfg1.n_layers} layer, {MOE['hold'][0]} x "
+                 f"{MOE['hold'][1]}, {name}: card against the CPU bf16 route and a float32 "
+                 f"evaluation", checks.hold_bf16(step_card[i], step_cpu["out"][i].to(dev),
+                                                 step_f32[i]), "bf16")
+    del step_card, step_f32, step_cpu, cpu32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    if on_card:
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  (b) held in {time.perf_counter() - t0:.1f} s; phase wall {wall:.1f} s (budget "
+          f"{MOE['budget_s']} s)")
+    return n_flash, n_float
+
+
 def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     import numpy as np
     import torch
@@ -3421,8 +3953,8 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
 
     # ------------------------------------------------------------------ #
     phase(f"20. full size, out of core: LJ1 at a {OOC_LJ1['vertices']}-vertex target under "
-          f"{OOC_LJ1['mem_budget']} bytes, SPR at scale {spr_scale} under {OOC_SPR_BUDGET} bytes, "
-          f"and kcore_run --out-of-core")
+          f"{OOC_LJ1['mem_budget']} bytes to convergence, SPR at scale {spr_scale} under "
+          f"{OOC_SPR_BUDGET} bytes for {OOC_ROUNDS} rounds, and kcore_run --out-of-core")
     err = out_of_core_full(torch, dev, g, core_bz, spr_fused, spr_scale, launches)
     stats["segment_sum"]["err"] = max(stats["segment_sum"]["err"], err)
 
@@ -3459,7 +3991,17 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     launches["flash_attention"] += n_flash
 
     # ------------------------------------------------------------------ #
-    phase("25. kernels")
+    phase(f"25. MoE and sliding-window attention: {MOE['arch']} served at full width, held "
+          f"against the CPU at {MOE['hold_layers']} layers and trained at "
+          f"{MOE['train_layers']}; {MOE['swa_arch']} at full width and {MOE['swa_layers']} layers "
+          f"past its window's roll, and its train step")
+    n_flash, n_float = moe_and_window(torch, np, dev, stats["flash_attention"],
+                                      stats["segment_sum_float"], smi, small=device != "cuda")
+    launches["flash_attention"] += n_flash
+    launches["segment_sum_float"] += n_float
+
+    # ------------------------------------------------------------------ #
+    phase("26. kernels")
     print("phase walls: " + "; ".join(f"{title.split(':')[0].split('.')[0]} {wall:.1f} s"
                                       for title, _, wall in phase_walls[:-1]))
     kernels = []

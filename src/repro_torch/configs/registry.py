@@ -1,14 +1,12 @@
 """``--arch <id>`` registry over the 10 assigned architectures (a copy of
 ``repro.configs.registry``).
 
-The port holds the configs of the architectures it runs: the dense LMs
-``qwen1.5-0.5b`` (served and trained at full width), and ``yi-34b`` (GQA) and
-``granite-34b`` (MQA, GELU MLP), whose ``SMOKE`` variants the tests use;
-the recommender ``din`` (trained, served and retrieved at full width); and
-the GNNs ``schnet``, ``egnn``, ``mace`` and ``graphcast``, whose forward
-paths run at full width (GraphCast's weather rollout among them). For the
-MoE ids ``get_config``/``get_smoke`` raise ``NotImplementedError``
-naming the ROADMAP.md items that will port them.
+Every id loads: the LMs ``qwen1.5-0.5b`` (served and trained at full
+width), ``qwen2-moe-a2.7b`` (MoE, served at full width), ``mixtral-8x22b``
+(MoE and sliding-window attention, at full width and cut depth), ``yi-34b``
+(GQA) and ``granite-34b`` (MQA, GELU MLP); the recommender ``din``
+(trained, served and retrieved at full width); and the GNNs ``schnet``,
+``egnn``, ``mace`` and ``graphcast`` (forward and training at full width).
 """
 
 from __future__ import annotations
@@ -18,6 +16,8 @@ import importlib
 from repro_torch.configs.base import ShapeSpec, shapes_for
 
 _MODULES = {
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "yi-34b": "repro_torch.configs.yi_34b",
     "granite-34b": "repro_torch.configs.granite_34b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1p5_0p5b",
@@ -28,18 +28,11 @@ _MODULES = {
     "egnn": "repro_torch.configs.egnn",
 }
 
-_NOT_PORTED = {
-    "qwen2-moe-a2.7b": "ROADMAP.md Queue A item 17 (MoE)",
-    "mixtral-8x22b": "ROADMAP.md Queue A items 17 and 18 (MoE; sliding-window attention)",
-}
-
 ARCH_IDS = ("qwen2-moe-a2.7b", "mixtral-8x22b", "yi-34b", "granite-34b", "qwen1.5-0.5b",
             "mace", "graphcast", "schnet", "egnn", "din")
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"--arch {arch} is not ported yet: {_NOT_PORTED[arch]}")
     if arch not in _MODULES:
         raise KeyError(f"unknown --arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     return importlib.import_module(_MODULES[arch])

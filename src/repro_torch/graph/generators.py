@@ -101,19 +101,30 @@ def barabasi_albert(n: int, m_attach: int, seed: int = 0) -> Graph:
 
 def rmat(scale: int, edge_factor: int = 16, seed: int = 0,
          a: float = 0.57, b: float = 0.19, c: float = 0.19) -> Graph:
-    """R-MAT / Graph500-style power-law generator, fully vectorized."""
+    """R-MAT / Graph500-style power-law generator, fully vectorized.
+
+    Each bit draws one uniform per edge into a reused buffer; the quadrant
+    tests are written in place (right = (r >= a) ^ (r >= a + b) ^ (r >= a +
+    b + c), the same booleans as the reference's), and the ids accumulate
+    in 32 bits where they fit."""
     n = 1 << scale
     m = n * edge_factor
     rng = np.random.default_rng(seed)
-    src = np.zeros(m, np.int64)
-    dst = np.zeros(m, np.int64)
+    ids = np.uint32 if scale <= 32 else np.uint64
+    src = np.zeros(m, ids)
+    dst = np.zeros(m, ids)
+    r = np.empty(m)
+    go_down, go_right, past = (np.empty(m, bool) for _ in range(3))
     for bit in range(scale):
-        r = rng.random(m)
+        rng.random(m, out=r)
         # quadrant probabilities: a (0,0), b (0,1), c (1,0), d (1,1)
-        go_right = ((r >= a) & (r < a + b)) | (r >= a + b + c)
-        go_down = r >= a + b
-        src |= go_down.astype(np.int64) << bit
-        dst |= go_right.astype(np.int64) << bit
+        np.greater_equal(r, a + b, out=go_down)
+        np.greater_equal(r, a, out=go_right)
+        np.logical_xor(go_right, go_down, out=go_right)
+        np.greater_equal(r, a + b + c, out=past)
+        np.logical_xor(go_right, past, out=go_right)
+        src |= np.left_shift(go_down.view(np.uint8), bit, dtype=ids)
+        dst |= np.left_shift(go_right.view(np.uint8), bit, dtype=ids)
     return Graph.from_edges(np.stack([src, dst], axis=1), n=n)
 
 

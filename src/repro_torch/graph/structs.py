@@ -58,20 +58,22 @@ class Graph:
                 offsets=np.zeros(nn + 1, np.int64), deg=np.zeros(nn, np.int32),
             )
         # Rule 1: a vertex cannot connect to itself.
-        edges = edges[edges[:, 0] != edges[:, 1]]
+        a, b = edges[:, 0], edges[:, 1]
+        keep = a != b
+        a, b = a[keep], b[keep]
         # Rule 3 (symmetrize) and rule 2 (at most one edge per pair):
         # canonical (min, max) pairs, deduplicated.
-        lo, hi = edges.min(axis=1), edges.max(axis=1)
+        lo, hi = np.minimum(a, b), np.maximum(a, b)
         key_base = int(hi.max()) + 1 if hi.size else 1
         canon = np.unique(lo * key_base + hi)
         lo, hi = canon // key_base, canon % key_base
         nn = int(n if n is not None else (hi.max() + 1 if hi.size else 0))
         m = canon.shape[0]
-        # Both arc directions, sorted by src (ties by dst for determinism).
-        src = np.concatenate([lo, hi])
-        dst = np.concatenate([hi, lo])
-        order = np.argsort(src * key_base + dst, kind="stable")
-        src, dst = src[order].astype(np.int32), dst[order].astype(np.int32)
+        # Both arc directions, sorted by src (ties by dst for determinism):
+        # the keys are distinct, so sorting them gives the arcs' order.
+        keys = np.concatenate([canon, hi * key_base + lo])
+        keys.sort()
+        src, dst = (keys // key_base).astype(np.int32), (keys % key_base).astype(np.int32)
         deg = np.bincount(src, minlength=nn).astype(np.int32)
         offsets = np.zeros(nn + 1, np.int64)
         np.cumsum(deg, out=offsets[1:])

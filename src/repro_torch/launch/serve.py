@@ -4,12 +4,18 @@
         --batch 4 --prompt-len 32 --gen 16 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --batch 8 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+        --batch 8 --prompt-len 2048 --gen 32
 
 The flags are ``repro.launch.serve``'s, plus ``--device cuda|cpu``: the run
 is on the card unless ``--device cpu`` is given (then the kernels' plain
 PyTorch versions run); with no card and no ``--device cpu`` it fails.
-Weights are drawn from ``--seed`` (``model.init_params``) and prompts from a
-generator seeded 1, as the reference draws its prompts from key 1. It
+Weights are drawn from ``--seed`` (``make_params``) and prompts from a
+generator seeded 1, as the reference draws its prompts from key 1. With a
+sliding window (``mixtral-8x22b``) the serving cache holds the last window
+and rolls; prefill writes each position at the slot decode reads it from
+(``model.prefill``), where the reference's placement is right only when the
+prompt length is at most the window or a multiple of it. It
 prints the reference's two lines, then the card's name and power limit and
 the prefill and decode times. ``profile_serve`` runs prefill and decode
 under ``torch.profiler`` (``chip_smoke.py`` prints it with
@@ -55,16 +61,30 @@ def make_prompts(cfg, batch: int, prompt_len: int, device) -> torch.Tensor:
     return torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen).to(device)
 
 
+# the most float32 weight bytes ``make_params`` draws on the host before casting them: a
+# few GiB (qwen1.5-0.5b takes 1.9 GB) where the host may share its memory
+HOST_DRAW_BYTES = 8 << 30
+
+
 def make_params(cfg, seed: int, device) -> dict:
-    """The bf16 serving weights (``cast_params``) on ``device``, drawn on the
-    CPU from ``seed``: one seed gives the same weights on any device."""
+    """The bf16 serving weights (``cast_params``' form) on ``device``, drawn
+    from ``seed``. A model whose float32 draw fits ``HOST_DRAW_BYTES`` is
+    drawn on the CPU, so one seed gives the same weights on any device. A
+    larger one is drawn where it will live, in bf16 a layer at a time
+    (``init_params(on_device=True)``), so that its float32 copy never
+    exists (qwen2-moe-a2.7b's would take 60.6 GB, yi-34b's 137.6 GB); its
+    numbers then come from that device's generator, and differ between the
+    card and the CPU."""
     from repro_torch.models.transformer import model as M
 
+    if 4 * M.param_numel(cfg) > HOST_DRAW_BYTES:
+        return M.init_params(cfg, seed, dtype=M.COMPUTE_DTYPE, device=device, on_device=True)
     return M.params_to(M.cast_params(M.init_params(cfg, seed, device="cpu")), device)
 
 
 def generate(params, cfg, prompts: torch.Tensor, gen: int, *, forced: torch.Tensor | None = None,
-             keep_logits: bool = False, dtype=torch.bfloat16) -> ServeResult:
+             keep_logits: bool = False, dtype=torch.bfloat16, routes: list | None = None,
+             forced_routes: list | None = None) -> ServeResult:
     """Prefill ``prompts`` (B, P) and decode ``gen`` tokens greedily, on the
     device the prompts and ``params`` lie on.
 
@@ -72,16 +92,26 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *, forced: torch.Tens
     the greedy choices (teacher forcing); the tokens returned are then the
     forced ones. ``keep_logits`` keeps each decode step's logits. ``dtype``
     is the compute dtype (bf16, the serving type; float32 with float32
-    parameters gives a yardstick without bf16 rounding).
+    parameters gives a yardstick without bf16 rounding). An MoE model's
+    ``moe_block`` calls append their routing to ``routes`` in call order
+    (``n_layers`` a pass: prefill, then each decode step), and take their
+    experts from the record at the same place in ``forced_routes`` (another
+    run's ``routes``) where given.
     """
     from repro_torch.models.transformer import model as M
 
     dev = prompts.device
     B, P = prompts.shape
+    L = cfg.n_layers
+
+    def pass_routes(i):
+        return None if forced_routes is None else forced_routes[i * L:(i + 1) * L]
+
     cache = M.init_kv_cache(cfg, B, P + gen, dtype=dtype, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = M.prefill(params, cfg, prompts, cache=cache, dtype=dtype)
+    logits, cache = M.prefill(params, cfg, prompts, cache=cache, dtype=dtype, routes=routes,
+                              forced=pass_routes(0))
     tok = logits.argmax(dim=-1, keepdim=True)
     _sync(dev)
     t1 = time.perf_counter()
@@ -89,7 +119,8 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *, forced: torch.Tens
         tok = forced[:, :1].to(dev)
     out, steps = [tok], []
     for i in range(gen - 1):
-        step, cache = M.decode_step(params, cfg, tok, cache, P + i, dtype=dtype)
+        step, cache = M.decode_step(params, cfg, tok, cache, P + i, dtype=dtype, routes=routes,
+                                    forced=pass_routes(i + 1))
         if forced is None:
             tok = step.argmax(dim=-1, keepdim=True)
         else:
@@ -147,15 +178,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--batch, --prompt-len and --gen must be at least 1")
     try:
         from repro_torch.configs import get_config, get_smoke
-        from repro_torch.models.transformer.model import check_ported
 
         args.cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
         if args.cfg.family != "lm":
             ap.error(f"--arch {args.arch} is a {args.cfg.family} model; this serves language "
                      f"models (DIN: python -m repro_torch.launch.din_serve; GraphCast weather: "
                      f"python -m repro_torch.launch.graphcast_weather)")
-        check_ported(args.cfg)
-    except (NotImplementedError, KeyError) as e:
+    except KeyError as e:
         ap.error(str(e).strip("'\""))
     return args
 

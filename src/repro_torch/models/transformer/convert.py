@@ -2,7 +2,8 @@
 
 ``params_from_jax(tree)`` takes the reference's parameter pytree (the key
 layout of ``repro.models.transformer.model.init_params``, stacked ``(L, ...)``
-leaves) with its leaves as numpy arrays, as ``jax.tree.map(np.asarray,
+leaves, an MoE model's nested ``layers["moe"]`` and ``["moe"]["shared"]``
+among them) with its leaves as numpy arrays, as ``jax.tree.map(np.asarray,
 params)`` gives them, and returns the port's parameter tree of torch
 tensors. ``opt_state_from_jax(tree)`` does the same for the reference's
 AdamW state ``{"m", "v", "count"}``, so a JAX step and a port step can start

@@ -2,13 +2,15 @@
 ``repro.models.transformer.steps``).
 
 ``make_train_step`` is the reference's: the gradient of ``model.lm_loss``
-(autograd, through the checkpointed layers, attention and loss chunks, and
-the embedding gather's backward on the float segment sum), accumulated in
+(cross-entropy plus 0.01 x the MoE aux loss; autograd, through the
+checkpointed layers, attention and loss chunks, and the embedding gather's
+and the MoE dispatch's backward on the float segment sum), accumulated in
 float32 over ``cfg.train_microbatches`` and divided by their count, then
 ``adamw_update`` with global-norm clipping at ``cosine_warmup(count,
 warmup=100, total=total_steps)``. ``build_*`` return ``(step_fn, specs,
 None, None)`` as the reference does without a mesh; ``specs`` maps each
-input to ``(shape, dtype)``. A mesh raises ``NotImplementedError``
+input to ``(shape, dtype)`` (a windowed model's decode cache capped at the
+window). A mesh raises ``NotImplementedError``
 (ROADMAP.md Queue A item 12). ``param_shapes``, ``opt_shapes`` and
 ``opt_specs``, whose only caller is ``launch/dryrun.py``, wait for item 13.
 """
@@ -93,7 +95,7 @@ def build_decode(cfg: LMConfig, shape: ShapeSpec, mesh=None):
         return M.decode_step(params, cfg, token, cache, pos)
 
     B, S = shape.params["global_batch"], shape.params["seq_len"]
-    cache = (cfg.n_layers, B, cfg.n_kv_heads, S, cfg.d_head)
+    cache = (cfg.n_layers, B, cfg.n_kv_heads, M.cache_len(cfg, S), cfg.d_head)
     specs = {"token": ((B, 1), torch.int32),
              "cache": {"k": (cache, M.COMPUTE_DTYPE), "v": (cache, M.COMPUTE_DTYPE)},
              "pos": ((), torch.int32)}

@@ -249,17 +249,28 @@ def test_serve_cli_without_a_card_fails_unless_cpu_is_asked():
     assert "no CUDA device" in out.stderr
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2-moe-a2.7b", "item 17"), ("schnet", "item 12")])
-def test_serve_cli_refuses_what_is_not_ported(arch, item):
-    """The MoE ids are not ported; the GNN ids are (item 12), and the LM
+@pytest.mark.parametrize("arch", ["schnet"])
+def test_serve_cli_refuses_what_is_not_ported(arch):
+    """Every LM id is ported; the GNN ids are too (item 12), and the LM
     serve CLI refuses them as another family, naming their launcher."""
     out = _run("repro_torch.launch.serve", "--arch", arch, "--device", "cpu")
     assert out.returncode == 2
-    if arch == "schnet":
-        assert "--arch schnet is a gnn model" in out.stderr
-        assert "repro_torch.launch.graphcast_weather" in out.stderr
-    else:
-        assert f"ROADMAP.md Queue A {item}" in out.stderr
+    assert f"--arch {arch} is a gnn model" in out.stderr
+    assert "repro_torch.launch.graphcast_weather" in out.stderr
+
+
+@pytest.mark.parametrize("arch,prompt", [("qwen2-moe-a2.7b", 16), ("mixtral-8x22b", 40)])
+def test_serve_cli_serves_the_moe_smoke_configs_on_the_cpu(arch, prompt):
+    """The MoE SMOKE configs through the serve CLI; Mixtral's prompt of 40
+    passes its window of 32, so the cache rolls from the first decode step."""
+    out = _run("repro_torch.launch.serve", "--arch", arch, "--smoke", "--device", "cpu",
+               "--batch", "2", "--prompt-len", str(prompt), "--gen", "6")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith(f"arch={arch}-smoke served batch=2 prompt={prompt} generated=6 ")
+    sample = json.loads(lines[1].removeprefix("sample: "))
+    assert len(sample) == 6 and all(0 <= t < 512 for t in sample)
+    assert lines[2].startswith("device: cpu") and "ms/token" in lines[2]
 
 
 # ------------------------------ graphcast_weather ------------------------- #

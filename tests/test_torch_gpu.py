@@ -8,9 +8,12 @@ the card against the CPU and their snapshots, serving through the flash kernel
 against the same weights served on the CPU, DIN through the
 embedding-bag kernel against the CPU and a float64 evaluation, and the GNNs
 on the float segment sum (its backward, the models and a weather training
-step) against the CPU, and LM training (the gradient, the embedding
+step) against the CPU, LM training (the gradient, the embedding
 gather's backward on the float kernel, the driver's restart, the trained
-weights served on the flash kernel) against the CPU and itself.
+weights served on the flash kernel) against the CPU and itself, and MoE and
+the sliding window (the MoE block's routing and output, its dispatch's
+backward on the float kernel, the rolling cache served past its window)
+against the CPU.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is present;
 the file imports neither ``jax`` nor the reference, so it runs on a machine
@@ -816,12 +819,14 @@ def _lm_step(cfg, params, tokens, labels, dtype=torch.bfloat16):
     return value_and_grad(lambda p: M.lm_loss(p, cfg, tokens, labels, dtype=dtype), params)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-34b", "granite-34b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-34b", "granite-34b", "qwen2-moe-a2.7b",
+                                  "mixtral-8x22b"])
 def test_lm_gradient_on_the_card_matches_the_cpu(cuda, arch):
     """The SMOKE LMs' loss and gradient on the card against the CPU bf16
     route and a float32 evaluation on the card (``checks.hold_bf16``, leaf by
     leaf but ``bk``, whose exact gradient is 0); one float kernel launch, the
-    embedding gather's backward."""
+    embedding gather's backward, and one a layer for an MoE model, the
+    dispatch's backward."""
     from repro_torch.data import synth_lm_batch
     from repro_torch.models.transformer import model as M
 
@@ -830,7 +835,7 @@ def test_lm_gradient_on_the_card_matches_the_cpu(cuda, arch):
     t, lab = (torch.from_numpy(a) for a in synth_lm_batch(cfg.vocab, 4, 48, seed=0, step=0))
     before = sk.float_launches
     card = _lm_step(cfg, M.params_to(params, cuda), t.to(cuda), lab.to(cuda))
-    assert sk.float_launches - before == 1
+    assert sk.float_launches - before == 1 + (cfg.n_layers if cfg.moe else 0)
     plain = _lm_step(cfg, params, t, lab)
     exact = _lm_step(cfg, M.params_to(params, cuda), t.to(cuda), lab.to(cuda), torch.float32)
     assert checks.hold_bf16(card[0], plain[0], exact[0])["ok"]
@@ -935,3 +940,99 @@ def test_train_launcher_on_the_card_profiles_a_step(cuda, tmp_path, capsys):
     assert lines[-1].startswith("arch=qwen1.5-0.5b-smoke steps=10 loss: ")
     assert lines[-2].startswith("device: ") and "peak device memory" in lines[-2]
     assert lines[0].startswith("one more step at 2 x 64: wall ") and "kernel launches" in lines[0]
+
+
+# --------------------------- MoE and the window --------------------------- #
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b"])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, arch):
+    """The SMOKE MoE block from the same weights and input: the routing
+    (experts, slots, kept selections) equal to the CPU's, the output by the
+    bf16 rule against a float32 evaluation on the card."""
+    from repro_torch.models.transformer import model as M
+
+    from repro_torch.tree import map_tree
+
+    cfg = get_smoke(arch)
+    lp = map_tree(lambda v: v[0], M.cast_params(M.init_params(cfg, 0, device="cpu"))["layers"]
+                  ["moe"])
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 48, cfg.d_model))
+                         .astype(np.float32)).bfloat16()
+    outs, routes = [], []
+    for dev, dtype in [(cuda, torch.bfloat16), (torch.device("cpu"), torch.bfloat16),
+                       (cuda, torch.float32)]:
+        p = map_tree(lambda v: v.to(dev, v.dtype if dtype == torch.bfloat16 else dtype), lp)
+        outs.append(M.moe_block(x.to(dev, dtype), p, cfg, routes)[0])
+    for k in ("gate_i", "pos", "keep"):
+        assert torch.equal(routes[0][k].cpu(), routes[1][k]), k
+    assert checks.hold_bf16(*outs)["ok"]
+
+
+def test_moe_dispatch_backward_on_the_card_is_bit_equal_to_the_cpu(cuda):
+    """The dispatch's backward on the float kernel adds each token's slot
+    rows in selection order, as the plain version does on the CPU: bit-equal
+    to the CPU, with dropped selections and a virtual split; one launch."""
+    import dataclasses
+
+    from repro_torch.models.transformer import model as M
+
+    base = get_smoke("mixtral-8x22b")
+    moe = dataclasses.replace(base.moe, capacity_factor=0.5)
+    r = np.random.default_rng(2)
+    x = torch.from_numpy(r.standard_normal((2, 64, base.d_model)).astype(np.float32)).bfloat16()
+    router = torch.from_numpy(r.standard_normal((base.d_model, moe.e_pad)).astype(np.float32))
+    C = M.moe_capacity(64, moe)
+    g = torch.from_numpy(r.standard_normal((moe.n_experts * moe.virtual_split, 2 * C,
+                                            base.d_model)).astype(np.float32)).bfloat16()
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        _, _, gate_i, pos = M.moe_route(x.to(dev), router.to(dev), moe)
+        a = x.to(dev).requires_grad_(True)
+        buf, _, keep = M.moe_dispatch(a, gate_i, pos, moe, C)
+        assert not keep.all()
+        before = sk.float_launches
+        buf.backward(g.to(dev))
+        assert sk.float_launches - before == (1 if dev == cuda else 0)
+        grads.append(a.grad.cpu())
+    assert torch.equal(*grads)
+
+
+def test_windowed_serving_past_the_roll_on_the_card_matches_the_cpu(cuda):
+    """Mixtral's SMOKE (window 32) served at a prompt of 45 from the same
+    weights: the cache rolls from the first decode step; prefill logits and 6
+    teacher-forced steps by the LM rule against a float32 evaluation on the
+    card; one flash launch a layer (the windowed prefill)."""
+    from repro_torch.models.transformer import model as M
+
+    cfg = get_smoke("mixtral-8x22b")
+    f32 = M.init_params(cfg, 0, device="cpu")
+    cpu_params = M.cast_params(f32)
+    prompts = serve.make_prompts(cfg, 2, 45, torch.device("cpu"))
+    fa.launches = 0
+    card = serve.generate(M.params_to(cpu_params, cuda), cfg, prompts.to(cuda), 7,
+                          keep_logits=True)
+    assert fa.launches == cfg.n_layers
+    plain = serve.generate(cpu_params, cfg, prompts, 7, forced=card.tokens, keep_logits=True)
+    exact = serve.generate(M.params_to(f32, cuda), cfg, prompts.to(cuda), 7, forced=card.tokens,
+                           keep_logits=True, dtype=torch.float32)
+    for got, want, ref in zip([card.prefill_logits] + card.step_logits,
+                              [plain.prefill_logits] + plain.step_logits,
+                              [exact.prefill_logits] + exact.step_logits):
+        assert checks.hold_bf16_noise(got, want, ref)["ok"]
+
+
+def test_moe_weights_drawn_on_the_card(cuda):
+    """``init_params(on_device=True)``: bf16 weights drawn a layer at a time
+    on the card, the router and the norms float32, the same numbers from
+    one seed twice, the reference's scales."""
+    from repro_torch.models.transformer import model as M
+
+    cfg = get_smoke("qwen2-moe-a2.7b")
+    a = M.init_params(cfg, 3, dtype=torch.bfloat16, device=cuda, on_device=True)
+    b = M.init_params(cfg, 3, dtype=torch.bfloat16, device=cuda, on_device=True)
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    moe = a["layers"]["moe"]
+    assert moe["router"].dtype == torch.float32 and a["layers"]["norm1"].dtype == torch.float32
+    assert moe["w_up"].dtype == torch.bfloat16 and moe["w_up"].device.type == "cuda"
+    assert float(moe["w_up"].float().std()) == pytest.approx(0.02, rel=0.05)
+    assert not torch.equal(moe["w_up"][0], moe["w_up"][1])

@@ -166,23 +166,17 @@ def test_params_from_jax_checks_keys_and_shapes():
         params_from_jax({k: v for k, v in tree.items() if k != "embed"}, cfg, device="cpu")
 
 
-def test_moe_and_sliding_window_are_not_ported_yet():
-    base = get_smoke("qwen1.5-0.5b")
-    moe = dataclasses.replace(base, moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
-    swa = dataclasses.replace(base, swa_window=8)
-    for cfg, item in [(moe, "item 17"), (swa, "item 18")]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A {item}"):
-            PM.init_params(cfg, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A {item}"):
-            PM.prefill({}, cfg, torch.zeros(1, 4, dtype=torch.long))
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A {item}"):
-            PM.init_kv_cache(cfg, 1, 8, device="cpu")
-    for arch, item in [("mixtral-8x22b", "items 17 and 18"), ("qwen2-moe-a2.7b", "item 17"),
-                       ("schnet", "item 12")]:
-        if arch == "schnet":    # ported with item 12's GNN forward paths
-            from repro.configs import get_config as jax_config
+def test_registry_loads_all_ten_ids():
+    """Every architecture id loads, config and SMOKE equal to the
+    reference's (MoE and the window included)."""
+    from repro.configs import ARCH_IDS as JAX_IDS, get_config as jax_config
 
-            assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_config(arch))
-            continue
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A {item}"):
-            get_config(arch)
+    from repro_torch.configs import ARCH_IDS
+
+    assert ARCH_IDS == tuple(JAX_IDS) and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_config(arch)), arch
+        assert dataclasses.asdict(get_smoke(arch)) == dataclasses.asdict(jax_smoke(arch)), arch
+    assert get_config("qwen2-moe-a2.7b").moe == MoEConfig(
+        n_experts=60, top_k=4, d_ff_expert=1408, n_shared=4, pad_experts_to=64)
+    assert get_config("mixtral-8x22b").swa_window == 4096
