@@ -210,8 +210,9 @@ of which must pass:
 22. GNN forward. (a) The float segment-sum kernel against its plain
    version on the CPU tests' cases (float32 and bf16, F 1 to 1,152, empty
    rows, E = 0, rows of one arc, masked pad arcs, a non-contiguous view, a
-   base 4 bytes off 16, (E,) values) and at the main path's shapes, each
-   timed: the weather processor's scatter (327,660 arcs, F 512, float32,
+   base 4 bytes off 16, (E,) values, and rows of 0, 1, S - 1, S, S + 1, 2S,
+   2S + 1 and 5S + 3 arcs about the stretch S = ``ops.STRETCH``, where the
+   summation order changes) and at the main path's shapes, each timed: the weather processor's scatter (327,660 arcs, F 512, float32,
    40,962 rows), MACE's a2 scatter of one SPR chunk (1,865,728 arcs, F
    1,152, bf16, 2,097,152 rows) and the widest SPR row alone at that width;
    within twice the float32 summation bound of the plain version on the
@@ -2271,7 +2272,9 @@ GNN = {"seed": 0, "weather_steps": 3, "full_graph": (2708, 10556, 1433, 7),
 WEATHER_CASE = "weather mm (processor block)"
 FLOAT_TOL = ("|kernel - plain| within twice the float32 summation bound gamma_(d-1) sum|v| of "
              "each row's d terms, plus one output ulp for bf16 (checks.segment_sum_excess); "
-             "bit-equal to the plain version on the CPU, which adds in edge order")
+             "bit-equal to the plain version on the CPU, which adds as the kernel does: each "
+             "stretch of ops.STRETCH arcs in edge order, then a row's stretches in order, "
+             "rounded once")
 
 
 def held(what: str, r: dict, rule: str) -> bool:
@@ -2335,9 +2338,11 @@ def float_case(torch, dev, st, vals, ids, n: int, label: str, timed: bool = Fals
         st["timed"][label] = dict(E=E, n=n, F=F, dtype=str(vals.dtype)[6:], ms=ms,
                                   device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib,
                                   bound_ms=bnd)
-        msg += (f": {ms:.4f} ms a call, {dev_ms or 0.0:.4f} ms on the device (plain "
-                f"{plain_ms:.3f} ms, index_add_ {lib:.4f} ms, bound {bnd:.4f} ms, {bnd / ms:.1%} "
-                f"of the call, {bnd / (dev_ms or ms):.1%} of the device time)")
+        on_dev = (f"{dev_ms:.4f} ms on the device" if dev_ms is not None
+                  else "the device time not measured")
+        msg += (f": {ms:.4f} ms a call, {on_dev} (plain {plain_ms:.3f} ms, index_add_ {lib:.4f} "
+                f"ms, bound {bnd:.4f} ms, {bnd / ms:.1%} of the call"
+                + (f", {bnd / dev_ms:.1%} of the device time)" if dev_ms is not None else ")"))
     check(ok, msg)
     return lay
 
@@ -2346,6 +2351,7 @@ def float_kernel_cases(torch, np, dev, st, g, small: bool) -> None:
     """Phase 22a: the float kernel against its plain version on the CPU
     tests' cases and at the main path's shapes."""
     from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels.segment_sum import ops as sk
     from repro_torch.models.gnn import graphcast, steps
 
     rng = np.random.default_rng(22)
@@ -2376,6 +2382,14 @@ def float_kernel_cases(torch, np, dev, st, g, small: bool) -> None:
                    f"{name} (E,) values, 30 a row")
         float_case(torch, dev, st, rand(20_000, 4, dtype), rng.integers(0, 10, 20_000), 10,
                    f"{name} 2,000 arcs a row")
+        # rows about the stretch S, where a row's sum becomes a sum of stretch partials
+        S = sk.STRETCH
+        widths = (0, 1, S - 1, S, S + 1, 2 * S, 2 * S + 1, 5 * S + 3)
+        ids = np.repeat(np.arange(len(widths)), widths)
+        rng.shuffle(ids)
+        for F in (1, 3, 8, 144, 1152):
+            float_case(torch, dev, st, rand(ids.size, F, dtype), ids, len(widths) + 3,
+                       f"{name} F={F}, rows of {', '.join(map(str, widths))} arcs")
 
     # the main path's shapes
     wcfg = (get_smoke if small else get_config)("graphcast")

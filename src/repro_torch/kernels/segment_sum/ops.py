@@ -15,21 +15,32 @@ ported.
 ``segment_sum_float(vals, layout)`` is the float form, the GNNs' scatter:
 ``vals`` (E,) or (E, F) float32 or bf16 in the edges' own order, summed per
 segment into (n,) or (n, F) through a ``SegmentLayout`` (``segment_layout``
-builds one on the ids' device, once per graph or batch). Each row's terms
-are added in float32 in edge order and rounded once, so the result is the
-same run to run. On the CPU it is the plain version,
-``ref.segment_sum_float_ref``; on the card it launches its kernel or raises.
-It is differentiable on both devices through one ``torch.autograd.Function``:
-the backward is the gather ``grad_out[ids]`` in ``vals``' dtype, which is
-what ``jax.ops.segment_sum``'s VJP is, so no kernel runs there.
-``float_launches`` counts the forward's launches apart from the int32
-kernel's.
+builds one on the ids' device, once per graph or batch). Each row's terms,
+in edge order, are cut into stretches of ``STRETCH`` consecutive arcs (the
+last may be shorter); each stretch is summed in float32 from 0 in edge
+order, the row's stretch partials are added in float32 from 0 in stretch
+order, and the sum is rounded once. A row of at most ``STRETCH`` arcs is
+one stretch, summed in edge order as a single float32 sum. The result
+depends on nothing but the row's own terms, so it is the same run to run
+and wherever the other rows lie. Every layout carries the kernel's work
+table (``StretchTable``: its rows wider than a stretch and their stretches,
+and the other rows in batches), derived from ``row_ptr`` when the layout is
+made. On the CPU it is the plain
+version, ``ref.segment_sum_float_ref``; on the card it launches its kernel
+or raises. It is differentiable on both devices through one
+``torch.autograd.Function``: the backward is the gather ``grad_out[ids]`` in
+``vals``' dtype, which is what ``jax.ops.segment_sum``'s VJP is, so no
+kernel runs there. ``float_launches`` counts the forward's calls of the
+kernel apart from the int32 kernel's: one a call, which runs the stretches'
+pass and, where some row is wider than a stretch, the pass that adds their
+partials.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -49,15 +60,31 @@ THREADS = 256
 ITEMS_PER_THREAD = 16
 ITEMS_PER_BLOCK = THREADS * ITEMS_PER_THREAD
 
+# The float form's stretch (csrc/segment_sum.cu's kStretch): arcs summed
+# together before a row's partials are added. Part of the function's
+# definition, so changing it changes bits; the kernel refuses any other value.
+STRETCH = 128
+# Rows and arcs a batch of the float kernel's whole rows spans (``StretchTable``;
+# csrc/segment_sum.cu's kBatchItems): the kernel merges batches into items of
+# about 8 KB a warp for the row width at hand. No bits depend on it.
+BATCH_ITEMS = 4
+
 _SYMBOLS = {
     "segment_sum_i32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_void_p],
     **{f"segment_sum_float_{t}": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                  ctypes.c_longlong, ctypes.c_void_p] for t in ("f32", "bf16")},
+                                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                                  ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+       for t in ("f32", "bf16")},
 }
 _FLOAT_SYMBOL = {torch.float32: "segment_sum_float_f32", torch.bfloat16: "segment_sum_float_bf16"}
+# The float kernel's two int64 ticket counters, one pair a (device, stream),
+# zeroed once: a call leaves them at 0, and calls on one stream never overlap.
+_TICKETS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,14 +144,85 @@ def segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class StretchTable:
+    """The float kernel's work table of a layout, built with it. The rows
+    wider than ``STRETCH`` arcs and their stretches: ``rows`` (W,) int64
+    ascending; ``ptr`` (W+1,) int64, row ``rows[w]``'s ceil(d / STRETCH)
+    stretches being [ptr[w], ptr[w+1]) (their slots in the kernel's float32
+    scratch of partials); ``owner`` (ptr[W],) int64, each stretch's w. The
+    other rows, empty ones included, are summed whole, in batches:
+    ``batches`` (B+1,) int64, the first row of each batch and then n. A batch
+    holds the rows whose start falls in one block of ``BATCH_ITEMS`` rows and
+    arcs (a wide row's arcs not counted), so it has at most ``BATCH_ITEMS``
+    rows and ``BATCH_ITEMS + STRETCH`` arcs."""
+
+    rows: torch.Tensor
+    ptr: torch.Tensor
+    owner: torch.Tensor
+    batches: torch.Tensor
+
+
+def stretch_table(row_ptr: torch.Tensor, width: int | None = None) -> StretchTable:
+    """The ``StretchTable`` of CSR offsets ``row_ptr`` (n+1,) int64, on their
+    device. Where every row has ``width`` arcs, it is computed from n and
+    ``width`` alone, without reading ``row_ptr`` back from the device."""
+    dev, n = row_ptr.device, row_ptr.numel() - 1
+    if width is not None:
+        return _uniform_table(n, width, dev)
+    d = row_ptr[1:] - row_ptr[:-1]
+    wide = d > STRETCH
+    rows = torch.nonzero(wide).flatten()
+    ptr = torch.zeros(rows.numel() + 1, dtype=torch.int64, device=dev)
+    owner = rows[:0]
+    if rows.numel():
+        per_row = (d[rows] + STRETCH - 1) // STRETCH
+        torch.cumsum(per_row, 0, out=ptr[1:])
+        owner = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), per_row)
+    # a row's start on the path of rows and narrow arcs, and the block of it
+    narrow = torch.where(wide, 0, d)
+    block = (torch.arange(n, device=dev) + torch.cumsum(narrow, 0) - narrow) // BATCH_ITEMS
+    first = torch.ones_like(wide)
+    first[1:] = block[1:] != block[:-1]
+    batches = torch.cat([torch.nonzero(first).flatten(),
+                         torch.tensor([n], dtype=torch.int64, device=dev)])
+    return StretchTable(rows=rows, ptr=ptr, owner=owner, batches=batches)
+
+
+def _uniform_table(n: int, width: int, dev) -> StretchTable:
+    """``stretch_table`` of n rows of ``width`` arcs each, by arithmetic."""
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=dev)
+    end = torch.tensor([n], dtype=torch.int64, device=dev)
+    if width > STRETCH:
+        per = -(-width // STRETCH)
+        return StretchTable(rows=ar(n), ptr=ar(n + 1) * per,
+                            owner=ar(n).repeat_interleave(per, output_size=n * per),
+                            batches=torch.cat([ar(0, n, BATCH_ITEMS), end]))
+    step = width + 1  # row r starts at r x step on the path; its block is that // BATCH_ITEMS
+    if step >= BATCH_ITEMS:
+        batches = ar(n + 1)
+    else:  # every block holds a start; block k's first is ceil(k x BATCH_ITEMS / step)
+        k = ar((n - 1) * step // BATCH_ITEMS + 1 if n else 0)
+        batches = torch.cat([(k * BATCH_ITEMS + step - 1) // step, end])
+    return StretchTable(rows=ar(0), ptr=end * 0, owner=ar(0), batches=batches)
+
+
+@dataclasses.dataclass(frozen=True)
 class SegmentLayout:
     """CSR layout of segment ids on a device: ``ids`` (E,) int64 as given,
     ``order`` (E,) int64 a stable argsort of them, ``row_ptr`` (n+1,) int64
-    the offsets of each segment's run in ``order``."""
+    the offsets of each segment's run in ``order``; ``width``, where the
+    caller built ``row_ptr`` with the same number of arcs in every row, that
+    number. ``stretches``, the ``StretchTable`` of ``row_ptr``, is derived
+    when the layout is made (by arithmetic where ``width`` is given)."""
 
     ids: torch.Tensor
     order: torch.Tensor
     row_ptr: torch.Tensor
+    width: int | None = None
+    stretches: StretchTable = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "stretches", stretch_table(self.row_ptr, self.width))
 
     @property
     def n(self) -> int:
@@ -175,8 +273,19 @@ def segment_sum_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor
     return _SegmentSumFloat.apply(vals, layout)
 
 
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The float kernel's ticket counters for the current stream on ``device``."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _TICKETS[key]
+
+
 def _launch_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
-    """One launch of the float kernel on checked CUDA ``vals``."""
+    """One call of the float kernel on checked CUDA ``vals``: the stretches'
+    and batches' pass and, where ``layout`` has rows wider than a stretch,
+    the pass that adds their partials (float32 scratch, one row of F a
+    stretch; the stream's ticket counters, ``_tickets``)."""
     global float_launches
     v = vals.unsqueeze(1) if vals.dim() == 1 else vals
     E, F = v.shape
@@ -188,10 +297,17 @@ def _launch_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     out = torch.empty((layout.n, F), dtype=vals.dtype, device=vals.device)
     if layout.n:
         lib = _build.load("segment_sum", _SYMBOLS)
+        st = layout.stretches
+        partials = (torch.empty((st.owner.numel(), F), dtype=torch.float32, device=vals.device)
+                    if st.owner.numel() else None)
+        tickets = _tickets(vals.device)
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = getattr(lib, _FLOAT_SYMBOL[vals.dtype])(
             v.data_ptr(), ld, layout.order.data_ptr(), layout.row_ptr.data_ptr(),
-            out.data_ptr(), layout.n, F, stream)
+            st.rows.data_ptr(), st.ptr.data_ptr(), st.owner.data_ptr(), st.batches.data_ptr(),
+            out.data_ptr(), partials.data_ptr() if partials is not None else None,
+            tickets.data_ptr(), layout.n, F,
+            st.rows.numel(), st.owner.numel(), st.batches.numel() - 1, STRETCH, stream)
         _build.check(lib, err, "segment_sum_float")
         float_launches += 1
     return out.squeeze(1) if vals.dim() == 1 else out

@@ -458,7 +458,9 @@ class _SlotGather(torch.autograd.Function):
     token), the rest 0; the last row is the spare that dropped selections
     write. Its backward adds each token's ``per`` slot rows of the cotangent
     (the spare's is 0) on the float segment sum, in selection order: the
-    kernel on the card, its plain version on the CPU."""
+    kernel on the card, its plain version on the CPU. Its hand-built layout
+    has ``per`` arcs in every row, so its work table comes by arithmetic,
+    with no read back from the card."""
 
     @staticmethod
     def forward(ctx, x, slots, rows):
@@ -476,7 +478,7 @@ class _SlotGather(torch.autograd.Function):
         n, per, dev = ctx.n, ctx.per, slots.device
         layout = SegmentLayout(ids=torch.arange(n, device=dev).repeat_interleave(per),
                                order=torch.arange(n * per, device=dev),
-                               row_ptr=torch.arange(n + 1, device=dev) * per)
+                               row_ptr=torch.arange(n + 1, device=dev) * per, width=per)
         return segment_sum_float(grad.index_select(0, slots), layout), None, None
 
 

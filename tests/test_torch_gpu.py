@@ -622,9 +622,12 @@ def _float_case(cuda, E, n, F, dtype, seed, view=False, ids=None):
 
 def _hold_float_kernel(cuda, vals, ids, n):
     """The kernel on the card: bit-equal to the plain version on the CPU
-    (``index_add_`` adds in edge order there, as the kernel does), within
-    ``checks.segment_sum_excess``'s bound of the plain version on the card
-    (atomics in no fixed order), and the same bits on a second call."""
+    (whose ``index_add_`` passes add in index order there: each stretch of
+    ``sk.STRETCH`` arcs in edge order, then a row's stretches in order, as
+    the kernel does), within ``checks.segment_sum_excess``'s bound of the
+    plain version on the card (atomics in no fixed order), and the same bits
+    on a second call; ``float_launches`` counts one a call, and each call
+    leaves the stream's ticket counters at 0 for the next."""
     lay = sk.segment_layout(ids, n, device=cuda)
     v = vals.to(cuda)
     before = sk.float_launches
@@ -632,6 +635,7 @@ def _hold_float_kernel(cuda, vals, ids, n):
     again = sk.segment_sum_float(v, lay)
     torch.cuda.synchronize()
     assert sk.float_launches == before + (2 if n else 0)
+    assert not sk._tickets(v.device).any()
     assert got.dtype == vals.dtype and torch.equal(got, again)
     cpu = sk.segment_sum_float(vals, sk.segment_layout(ids, n))
     assert torch.equal(got.cpu(), cpu)
@@ -679,6 +683,19 @@ def test_float_segment_sum_kernel_at_its_edges(cuda, dtype, case):
     else:
         vals, ids, n = torch.zeros((0, 4), dtype=dtype), np.zeros(0, np.int64), 0
     _hold_float_kernel(cuda, vals, ids, n)
+
+
+@pytest.mark.parametrize("F", [1, 3, 8, 144])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_segment_sum_kernel_at_the_stretch_boundaries(cuda, dtype, F):
+    """Rows of 0, 1, S - 1, S, S + 1, 2S, 2S + 1 and 5S + 3 arcs (S = ``sk.STRETCH``),
+    their arcs shuffled among each other's, and empty rows after them."""
+    S = sk.STRETCH
+    widths = (0, 1, S - 1, S, S + 1, 2 * S, 2 * S + 1, 5 * S + 3)
+    ids = np.repeat(np.arange(len(widths)), widths)
+    np.random.default_rng(F).shuffle(ids)
+    vals, ids = _float_case(cuda, ids.size, 1, F, dtype, F, ids=ids)
+    _hold_float_kernel(cuda, vals, ids, len(widths) + 3)
 
 
 def test_float_segment_sum_kernel_refuses_what_it_does_not_take(cuda):
@@ -852,8 +869,9 @@ def _flat(tree, prefix=""):
 
 def test_lm_embedding_backward_on_the_card_is_bit_equal_to_the_cpu(cuda):
     """The gather's backward on the float kernel adds each row's terms in
-    token order, as ``index_add_`` does on the CPU: bit-equal to the CPU,
-    Zipf tokens with a hot row among them."""
+    token order (its hot row is under a stretch), as the plain version does
+    on the CPU: bit-equal to the CPU, Zipf tokens with a hot row among
+    them."""
     from repro_torch.data import synth_lm_batch
     from repro_torch.models.transformer import model as M
 
@@ -869,6 +887,28 @@ def test_lm_embedding_backward_on_the_card_is_bit_equal_to_the_cpu(cuda):
         assert sk.float_launches - before == (1 if dev == cuda else 0)
         grads.append(t.grad.cpu())
     assert torch.equal(*grads)
+
+
+def test_lm_embedding_backward_with_a_hot_row_of_several_stretches(cuda):
+    """The same at 8 x 4,096 Zipf tokens, whose hottest row is wider than a
+    stretch: its partials are added in stretch order on the card as on the
+    CPU, so the two stay bit-equal, and a second call gives the same bits."""
+    from repro_torch.data import synth_lm_batch
+    from repro_torch.models.transformer import model as M
+
+    tokens = torch.from_numpy(synth_lm_batch(4096, 8, 4096, seed=0, step=0)[0])
+    assert int(torch.bincount(tokens.reshape(-1)).max()) > sk.STRETCH
+    r = np.random.default_rng(2)
+    table = torch.from_numpy(r.standard_normal((4096, 96)).astype(np.float32))
+    g = torch.from_numpy(r.standard_normal((8, 4096, 96)).astype(np.float32))
+    grads = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        t = table.to(dev).requires_grad_(True)
+        before = sk.float_launches
+        M._EmbedGather.apply(t, tokens.to(dev)).backward(g.to(dev))
+        assert sk.float_launches - before == (1 if dev == cuda else 0)
+        grads.append(t.grad.cpu())
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
 
 
 def test_lm_driver_restart_on_the_card_is_bit_exact(cuda, tmp_path):

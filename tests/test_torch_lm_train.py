@@ -216,9 +216,9 @@ def test_train_attention_chunks_match_jax(S_, q_chunk):
 def test_embedding_backward_is_the_scatter_on_the_segment_sum():
     """The gather's backward (``_EmbedGather``) through the float segment
     sum equals the plain scatter-add (``index_add_``, which adds in token
-    order on the CPU as the kernel does) bit for bit, and autograd through
-    ``F.embedding`` to float32 rounding; Zipf tokens put one row many
-    times."""
+    order on the CPU, as the kernel adds a row of at most ``ops.STRETCH``
+    terms) bit for bit, and autograd through ``F.embedding`` to float32
+    rounding; Zipf tokens put one row many times (31, under a stretch)."""
     rng = np.random.default_rng(0)
     V, d = 512, 24
     tokens, _ = synth_lm_batch(V, 8, 64, seed=0, step=0)
