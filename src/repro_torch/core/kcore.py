@@ -433,14 +433,20 @@ def make_sharded_superstep(sg, mesh, axis_names, n_iters: int, masked: bool = Fa
     st = _dispatch.stage_shards(sg, mesh, axis_names)
     if masked:
         return _masked_sharded_superstep(st, n_iters), st
+    return sharded_superstep(st, n_iters), st
 
+
+def sharded_superstep(st, n_iters: int):
+    """``superstep(est) -> (est', msgs, any)`` over staged shards ``st``
+    (``make_sharded_superstep``'s unmasked superstep; ``launch/dryrun.py``
+    gives it shards staged as ``meta`` tensors)."""
     def superstep(est):
         new, changed, _ = _sharded_round(st, est, None, n_iters, receivers=False)
         msgs, n_changed = compat.psum(
-            torch.stack([torch.where(changed, st.deg, 0).sum(), changed.sum()]), mesh)
+            torch.stack([torch.where(changed, st.deg, 0).sum(), changed.sum()]), st.mesh)
         return new, msgs, n_changed > 0
 
-    return superstep, st
+    return superstep
 
 
 def _fused_sharded_convergence(st, n_iters: int, max_rounds: int):

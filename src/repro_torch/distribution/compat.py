@@ -26,7 +26,10 @@ holds one device, and NCCL refuses two ranks on one GPU. Gloo's
 through host memory themselves); bool masks travel as uint8. The group has
 a timeout, so ranks that fall out of step fail instead of hanging.
 ``cpu_collectives_hint`` (a jax backend flag) has no torch meaning and is
-not ported.
+not ported. Each ``all_gather`` and ``psum`` over a mesh of more than one
+shard is noted, from its shapes, in any open
+``distribution.collectives.collective_bytes`` tally, whether or not it
+crosses a process.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.distribution.collectives import note_collective
 from repro_torch.platform import resolve_device
 
 # seconds a collective may wait for the other ranks before it fails
@@ -161,6 +165,8 @@ def stage_to_mesh(arr, mesh: Mesh) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This process's shards ``x`` (leading dimension over the local
     shards) concatenated with every other process's, in shard order."""
+    if mesh.size > 1:
+        note_collective("all-gather", x.numel() * x.element_size() * mesh.world, mesh.size)
     if mesh.world == 1:
         return x
     send = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
@@ -171,6 +177,8 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum of ``x`` (an integer tensor) over every process of the mesh."""
+    if mesh.size > 1:
+        note_collective("all-reduce", x.numel() * x.element_size(), mesh.size)
     if mesh.world == 1:
         return x
     total = x.clone()

@@ -25,8 +25,6 @@ import threading
 import time
 from pathlib import Path
 
-from repro_torch.obs import trace as _trace
-
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build"
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -46,8 +44,8 @@ SOURCES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# builds this process ran, and the wall they took (KCoreResult.recompiles /
-# compile_s report the delta a run caused)
+# builds this process ran, and the wall they took (core/jit_telemetry.py reads
+# them; KCoreResult.recompiles / compile_s report the delta a run caused)
 _builds = 0
 _build_seconds = 0.0
 
@@ -92,28 +90,32 @@ def build_all(names=None) -> dict[str, float]:
     global _builds, _build_seconds
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {name: 0.0 for name in names}
     started = {}
-    with _trace.span("kernel.build", kernels=",".join(names)):
-        for name in names:
-            out = _target(name)
-            if out.exists():
-                continue
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNELS_DIR / SOURCES[name])]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            started[name] = (proc, tmp, out, time.perf_counter())
-        seconds = {name: 0.0 for name in names}
-        failures = []
-        for name, (proc, tmp, out, t0) in started.items():
-            log, _ = proc.communicate()
-            seconds[name] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                failures.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
-                continue
-            out.with_suffix(".log").write_text(log)
-            os.replace(tmp, out)
+    t_wall = time.perf_counter()
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNELS_DIR / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, out, t0) in started.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
     _builds += len(started)
     _build_seconds += sum(seconds.values())
+    if started:
+        from repro_torch.core import jit_telemetry
+
+        jit_telemetry.record_build(started, time.perf_counter() - t_wall)
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds

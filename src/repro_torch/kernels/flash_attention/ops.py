@@ -6,8 +6,10 @@ signature (``repro.kernels.flash_attention.ops.flash_attention``): q
 head h reads kv head ``h // (Hq // Hkv)``), float32 or bfloat16, causal and
 sliding-window masks on absolute positions that start at 0 for both q and
 k. On a CUDA tensor it launches the kernel (or raises); on a CPU tensor it
-computes the plain version, ``ref.attention_ref``. ``launches`` counts the
-kernel's launches and nothing else.
+computes the plain version, ``ref.attention_ref``; on a ``meta`` tensor it
+returns an empty result. ``launches`` counts the kernel's launches and
+nothing else. Every call books ``cost`` of its shapes with the counters open on its
+thread (``kernels/cost.py``).
 
 The kernel takes the batch, sequence and head strides of each input, so the
 ``(B, S, H, d)`` projections go in without a ``.contiguous()`` copy. Only an
@@ -26,6 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import kernel_call
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
@@ -74,13 +77,69 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _rows_sum(a: int, b: int, slope: int, c: int, Sk: int) -> int:
+    """Sum over the query rows i in [a, b) of ``slope * i + c`` where that is
+    positive, and of Sk where it is not (a row masked everywhere)."""
+    if a >= b:
+        return 0
+    if slope == 0:
+        return (b - a) * (c if c > 0 else Sk)
+    p0, p1 = (max(a, 1 - c), b) if slope > 0 else (a, min(b, c))
+    n = max(p1 - p0, 0)
+    kept = slope * ((p0 + p1 - 1) * n // 2) + c * n if n else 0
+    return kept + (b - a - n) * Sk
+
+
+def pairs(Sq: int, Sk: int, causal: bool = True, window: int | None = None) -> int:
+    """The (query, key) pairs the scores need: the unmasked ones of each
+    query row, and all Sk keys of a row masked everywhere (it averages v over
+    them). Positions start at 0 for both queries and keys. Query row i sees
+    keys [max(i - window + 1, 0), min(i, Sk - 1)] (no window: from 0; not
+    causal: to Sk - 1), a count linear in i between the rows where a bound
+    turns, so the sum is taken in closed form, stretch by stretch."""
+    turns = {0, Sq}
+    if causal:
+        turns.add(min(max(Sk - 1, 0), Sq))
+    if window is not None:
+        turns.add(min(max(int(window) - 1, 0), Sq))
+    cuts = sorted(turns)
+    total = 0
+    for a, b in zip(cuts, cuts[1:]):
+        # hi = i (slope 1) below Sk - 1 when causal, else Sk - 1; lo = i - window + 1 (slope
+        # 1) from row window - 1 on when windowed, else 0; the row sees hi - lo + 1 keys
+        hi_s, hi_c = (1, 0) if causal and a < Sk - 1 else (0, Sk - 1)
+        lo_s, lo_c = (1, 1 - int(window)) if window is not None and a >= int(window) - 1 \
+            else (0, 0)
+        total += _rows_sum(a, b, hi_s - lo_s, hi_c - lo_c + 1, Sk)
+    return total
+
+
+def cost(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, d: int, itemsize: int,
+         causal: bool = True, window: int | None = None) -> tuple[float, float]:
+    """``(flops, bytes)`` of one call: the two products q k^T and p v over the
+    pairs the masks keep (``pairs``), 4 d FLOPs a pair and query head; q, k
+    and v read once and the output written once."""
+    flops = 4 * B * Hq * d * pairs(Sq, Sk, causal, window)
+    return float(flops), float((2 * B * Sq * Hq + 2 * B * Sk * Hkv) * d * itemsize)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
     """q: (B, Sq, Hq, d), k/v: (B, Sk, Hkv, d) -> (B, Sq, Hq, d) in q's dtype."""
-    global launches
     _check(q, k, v, window)
     B, Sq, Hq, d = q.shape
     _, Sk, Hkv, _ = k.shape
+    with kernel_call("flash_attention", cost, B, Sq, Sk, Hq, Hkv, d, q.element_size(), causal,
+                     window, dtype=q.dtype):
+        return _flash_attention(q, k, v, causal, window)
+
+
+def _flash_attention(q, k, v, causal, window):
+    global launches
+    B, Sq, Hq, d = q.shape
+    _, Sk, Hkv, _ = k.shape
+    if q.device.type == "meta":
+        return torch.empty((B, Sq, Hq, d), dtype=q.dtype, device="meta")
     if q.device.type == "cpu":
         qf = q.transpose(1, 2).reshape(B * Hq, Sq, d)
         kf = k.transpose(1, 2).reshape(B * Hkv, Sk, d)

@@ -5,8 +5,11 @@
 h-index of an ELL tile of gathered neighbor estimates, found by exactly
 ``n_iters`` binary-search probes. On a CUDA tensor it launches the kernel
 (or raises); on a CPU tensor it computes the plain version,
-``ref.hindex_rows_ref``. ``launches`` counts the kernel's launches and
-nothing else. Estimates must be non-negative, as k-core estimates are.
+``ref.hindex_rows_ref``; on a ``meta`` tensor it returns an empty result.
+``launches`` counts the kernel's launches and nothing else. Every call books
+``cost`` of its shapes with the counters open on its thread
+(``kernels/cost.py``). Estimates must be
+non-negative, as k-core estimates are.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import kernel_call
 from repro_torch.kernels.kcore_hindex.ref import hindex_rows_ref
 
 launches = 0
@@ -42,15 +46,28 @@ def _check(nbr_est: torch.Tensor, est_u: torch.Tensor, n_iters: int) -> None:
         raise ValueError(f"row width {nbr_est.shape[1]} does not fit an int32")
 
 
+def cost(rows: int, width: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of one call on an (rows, width) tile: the tile and
+    ``est_u`` read once, the result written once (int32); no floating point."""
+    return 0.0, float(4 * rows * width + 8 * rows)
+
+
 def hindex_rows(nbr_est: torch.Tensor, est_u: torch.Tensor, n_iters: int) -> torch.Tensor:
     """nbr_est (R, W) int32 (sentinel slots 0), est_u (R,) int32 -> (R,) int32."""
-    global launches
     _check(nbr_est, est_u, n_iters)
+    with kernel_call("kcore_hindex", cost, *nbr_est.shape):
+        return _hindex_rows(nbr_est, est_u, n_iters)
+
+
+def _hindex_rows(nbr_est: torch.Tensor, est_u: torch.Tensor, n_iters: int) -> torch.Tensor:
+    global launches
     if nbr_est.device.type == "cpu":
         return hindex_rows_ref(nbr_est, est_u, n_iters)
+    rows, width = nbr_est.shape
+    if nbr_est.device.type == "meta":
+        return torch.empty(rows, dtype=torch.int32, device="meta")
     if nbr_est.device.type != "cuda":
         raise ValueError(f"hindex_rows runs on cuda or cpu, not {nbr_est.device}")
-    rows, width = nbr_est.shape
     out = torch.empty(rows, dtype=torch.int32, device=nbr_est.device)
     if rows == 0:
         return out

@@ -3,9 +3,12 @@
 ``segment_sum(vals, row_ptr)`` sums int32 values over CSR rows: the arcs of
 a graph sorted by source, with ``Graph.offsets`` as ``row_ptr``. On a CUDA
 tensor it launches the kernel (or raises); on a CPU tensor it computes the
-plain version, ``ref.segment_sum_ref``. ``launches`` counts the kernel's
-launches and nothing else: one a call, which runs the search for the
-blocks' starts, the merge-path pass and the small pass over its carries.
+plain version, ``ref.segment_sum_ref``; on a ``meta`` tensor it returns an
+empty result. ``launches`` counts the kernel's launches and nothing else:
+one a call, which runs the search for the blocks' starts, the merge-path
+pass and the small pass over its carries. Every call of either form books
+its cost function's ``(flops, bytes)`` (``cost``, ``float_cost``) with the
+counters open on its thread (``kernels/cost.py``).
 
 Segment ids in any order go through ``csr_layout``, a host-side stable
 argsort: ``segment_sum(vals[layout.order], layout.row_ptr)``. The reference's
@@ -33,7 +36,9 @@ or raises. It is differentiable on both devices through one
 kernel runs there. ``float_launches`` counts the forward's calls of the
 kernel apart from the int32 kernel's: one a call, which runs the stretches'
 pass and, where some row is wider than a stretch, the pass that adds their
-partials.
+partials. A layout of ``meta`` ids carries no work table and its ids are not
+range-checked: it serves to count a step's work (``launch/step_cost.py``),
+where the forward returns an empty result.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cost import kernel_call, uncounted
 from repro_torch.kernels.segment_sum.ref import segment_sum_float_ref, segment_sum_ref
 
 launches = 0
@@ -117,17 +123,47 @@ def _check(vals: torch.Tensor, row_ptr: torch.Tensor) -> None:
         raise ValueError(f"vals on {vals.device} but row_ptr on {row_ptr.device}")
 
 
+def cost(E: int, n: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of one int32 call over E arcs and n rows: the values
+    and the n+1 int64 offsets read once, the sums written once; no floating
+    point."""
+    return 0.0, float(4 * E + 8 * (n + 1) + 4 * n)
+
+
+def float_cost(E: int, n: int, F: int, itemsize: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of one float call, (E, F) values of ``itemsize``
+    bytes into n rows: the values, the int64 order and offsets read once, the
+    sums written once. Additions only, so no FLOPs are booked, as no matrix
+    product is done."""
+    return 0.0, float(E * F * itemsize + 8 * E + 8 * (n + 1) + n * F * itemsize)
+
+
+def float_backward_cost(E: int, n: int, F: int, itemsize: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of the float form's backward, the gather
+    ``grad_out[ids]``: the (n, F) gradient and the int64 ids read, the (E, F)
+    result written. It is no kernel: ``step_cost`` counts it as the
+    ``index_select`` it is."""
+    return 0.0, float(n * F * itemsize + 8 * E + E * F * itemsize)
+
+
 def segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     """Per-row sums: vals (E,) int32 in row order, row_ptr (n+1,) int64
     non-decreasing with row_ptr[0] == 0 and row_ptr[n] == E -> (n,) int32.
     Empty rows are 0."""
-    global launches
     _check(vals, row_ptr)
+    with kernel_call("segment_sum", cost, vals.numel(), row_ptr.numel() - 1):
+        return _segment_sum(vals, row_ptr)
+
+
+def _segment_sum(vals: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    global launches
     if vals.device.type == "cpu":
         return segment_sum_ref(vals, row_ptr)
+    n, E = row_ptr.numel() - 1, vals.numel()
+    if vals.device.type == "meta":
+        return torch.empty(n, dtype=torch.int32, device="meta")
     if vals.device.type != "cuda":
         raise ValueError(f"segment_sum runs on cuda or cpu, not {vals.device}")
-    n, E = row_ptr.numel() - 1, vals.numel()
     out = torch.empty(n, dtype=torch.int32, device=vals.device)
     if n == 0:
         return out
@@ -222,7 +258,9 @@ class SegmentLayout:
     stretches: StretchTable = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        object.__setattr__(self, "stretches", stretch_table(self.row_ptr, self.width))
+        if self.row_ptr.device.type != "meta":
+            with uncounted():      # the kernel's own table: a meta layout has none to count
+                object.__setattr__(self, "stretches", stretch_table(self.row_ptr, self.width))
 
     @property
     def n(self) -> int:
@@ -235,7 +273,7 @@ def segment_layout(ids, n: int, device=None) -> SegmentLayout:
     ids = torch.as_tensor(ids, device=device).to(torch.int64)
     if ids.dim() != 1:
         raise ValueError(f"segment ids must be 1-D, got {tuple(ids.shape)}")
-    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n):
+    if ids.numel() and ids.device.type != "meta" and (int(ids.min()) < 0 or int(ids.max()) >= n):
         raise ValueError(f"segment ids must lie in [0, {n})")
     sorted_ids, order = torch.sort(ids, stable=True)
     row_ptr = torch.searchsorted(sorted_ids, torch.arange(n + 1, device=ids.device))
@@ -249,9 +287,14 @@ class _SegmentSumFloat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, layout):
         ctx.layout, ctx.dtype = layout, vals.dtype
-        if vals.device.type == "cpu":
-            return segment_sum_float_ref(vals, layout.ids, layout.n)
-        return _launch_float(vals, layout)
+        F = vals.shape[1] if vals.dim() == 2 else 1
+        with kernel_call("segment_sum_float", float_cost, vals.shape[0], layout.n, F,
+                         vals.element_size()):
+            if vals.device.type == "cpu":
+                return segment_sum_float_ref(vals, layout.ids, layout.n)
+            if vals.device.type == "meta":
+                return vals.new_empty((layout.n, *vals.shape[1:]))
+            return _launch_float(vals, layout)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -266,7 +309,7 @@ def segment_sum_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor
                          f"{tuple(vals.shape)}")
     if vals.device != layout.order.device:
         raise ValueError(f"vals on {vals.device} but the layout on {layout.order.device}")
-    if vals.device.type not in ("cpu", "cuda"):
+    if vals.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"segment_sum_float runs on cuda or cpu, not {vals.device}")
     if vals.device.type == "cuda" and vals.dtype not in _FLOAT_SYMBOL:
         raise ValueError(f"the float segment-sum kernel takes float32 or bfloat16, not {vals.dtype}")

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
@@ -109,7 +108,9 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> t
     layout = layout if layout is not None else dst_layout(batch)
     feats = batch.get("feats")
     if feats is None:
-        feats = F.one_hot(batch["species"].long(), cfg.d_hidden)
+        # one-hot by comparison: F.one_hot runs other ops on each device
+        feats = batch["species"].long()[:, None] == torch.arange(cfg.d_hidden,
+                                                                  device=batch["species"].device)
     h = mlp_apply(params["encode"], feats.to(cd))
     src, dst = batch["src"], batch["dst"]
     e = params["edge_embed"].to(cd).expand(src.shape[0], cfg.d_hidden)

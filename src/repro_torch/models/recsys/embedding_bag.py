@@ -11,7 +11,7 @@ Pallas kernel does.
 The kernel has no backward (the reference's has none either: JAX
 differentiates its XLA path). ``bag_sum`` wraps it in an autograd Function
 whose backward is plain PyTorch: the output gradient of each bag added into
-the table rows of its valid indices.
+the table rows of its valid indices (padding slots add 0 into row 0).
 """
 
 from __future__ import annotations
@@ -32,10 +32,12 @@ class _BagSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        # every slot adds its bag's gradient into its row, a padding slot 0 into row 0: shapes
+        # that do not depend on the data, as the reference's scatter-add has
         (indices,) = ctx.saved_tensors
-        valid = indices >= 0
-        rows = indices[valid].long()
-        src = grad.unsqueeze(1).expand(*indices.shape, grad.shape[-1])[valid]
+        valid = (indices >= 0).unsqueeze(-1)
+        rows = indices.clamp(min=0).long().reshape(-1)
+        src = torch.where(valid, grad.unsqueeze(1), 0).reshape(-1, grad.shape[-1])
         return grad.new_zeros(ctx.table_shape).index_add_(0, rows, src), None
 
 

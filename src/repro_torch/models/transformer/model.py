@@ -34,9 +34,10 @@ a bf16 product cast to float32 before the mask and the softmax, and the
 probabilities go back to bf16, as in the reference's
 ``_attention_scores_mha``; with a window and S > 2 x window each chunk sees
 only the keys its window can reach, as in the reference. Each chunk, each
-layer (``remat_policy == "full"``) and each loss chunk runs under
-``torch.utils.checkpoint`` while grad is enabled, so a (B, H, 512, S) score
-chunk or a (B, S/8, vocab) logits chunk is never kept for the backward. The
+layer (by ``cfg.remat_policy``, see ``forward_hidden``) and each loss chunk
+runs under ``torch.utils.checkpoint`` while grad is enabled, so a (B, H,
+512, S) score chunk or a (B, S/8, vocab) logits chunk is never kept for the
+backward. The
 embedding gather's backward, the scatter-add of the (B*S, d) cotangent into
 the (V, d) table, is the float segment-sum kernel (``_EmbedGather``): it
 adds each row's terms in a fixed order, so a step and its recomputation,
@@ -54,7 +55,8 @@ and rounds once, as the reference's bf16 einsum does. The pad experts'
 slots, which the router never fills, are not computed.
 
 Left out: ``ShardingRules``/``constrain`` and ``scan_unroll`` (one card, a
-Python loop over the layers).
+Python loop over the layers, which ``launch/step_cost.py`` counts once an
+iteration without unrolling anything).
 
 Two deliberate differences in decode (ROADMAP.md Queue C, caveats 4 and
 8). The reference gives the cache slots that hold no position yet (zeros)
@@ -73,7 +75,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.flash_attention import ops as flash
@@ -82,7 +85,15 @@ from repro_torch.platform import resolve_device
 
 COMPUTE_DTYPE = torch.bfloat16
 
-_REMAT = "ROADMAP.md Queue A item 13 (the XLA analysis tools; launch/hillclimb.py sets it)"
+# the products a remat policy keeps for the backward instead of recomputing them: "dots"
+# those with no batch dimension (jax's dots_with_no_batch_dims_saveable), "all_dots" every
+# one (dots_saveable); "full" keeps none
+_SAVED_DOTS = {
+    "full": frozenset(),
+    "dots": frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default}),
+    "all_dots": frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}),
+}
 
 
 # ---------------------------------------------------------------------- #
@@ -226,6 +237,22 @@ def _checkpointed(fn, *args):
     return fn(*args)
 
 
+def _remat(policy: str, fn, *args):
+    """``_checkpointed(fn, *args)``, but keeping for the backward the
+    products the remat ``policy`` saves (``_SAVED_DOTS``)."""
+    if policy == "full":
+        return _checkpointed(fn, *args)
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    saved = _SAVED_DOTS[policy]
+
+    def keep(ctx, op, *a, **k):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(keep))
+
+
 # ---------------------------------------------------------------------- #
 # Building blocks
 # ---------------------------------------------------------------------- #
@@ -316,7 +343,8 @@ def train_attention(x, p, cfg: LMConfig, pos, q_chunk: int = 512):
     expanded to the query heads, each chunk's scores
     (``_attention_scores_mha``) over the keys its window reaches
     (``_key_window``) under ``torch.utils.checkpoint`` while grad is
-    enabled. Returns (B, S, d)."""
+    enabled, keeping the products ``cfg.remat_policy`` keeps, as the
+    reference's chunk inherits its layer's policy. Returns (B, S, d)."""
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     rep = hq // hkv
@@ -331,9 +359,9 @@ def train_attention(x, p, cfg: LMConfig, pos, q_chunk: int = 512):
     outs = []
     for c in range(n_chunks):
         keys = _key_window(c, qc, S, cfg.swa_window) or slice(None)
-        outs.append(_checkpointed(_attention_scores_mha, qf[:, c * qc:(c + 1) * qc], kf[:, keys],
-                                  vf[:, keys], pos[c * qc:(c + 1) * qc], pos[keys],
-                                  cfg.swa_window))
+        outs.append(_remat(cfg.remat_policy, _attention_scores_mha, qf[:, c * qc:(c + 1) * qc],
+                           kf[:, keys], vf[:, keys], pos[c * qc:(c + 1) * qc], pos[keys],
+                           cfg.swa_window))
     out = torch.cat(outs, dim=1).reshape(B, S, hq * dh)
     return torch.matmul(out, p["wo"].to(x.dtype))
 
@@ -429,7 +457,8 @@ def moe_route(x, router, moe, gate_i=None):
         gate_v = probs.gather(-1, gate_i)
     gate_v = gate_v / gate_v.sum(-1, keepdim=True).clamp_min(1e-9)
     flat = gate_i.reshape(B, S * K)
-    sel = F.one_hot(flat, E)                            # (B, S*K, E)
+    # one-hot (B, S*K, E) by comparison: F.one_hot runs other ops on each device
+    sel = (flat[..., None] == torch.arange(E, device=flat.device)).long()
     pos = (sel.cumsum(1) - sel).gather(2, flat[..., None])[..., 0]
     return probs, gate_v, gate_i, pos.reshape(B, S, K)
 
@@ -536,7 +565,9 @@ def moe_block(x, p, cfg: LMConfig, routes: list | None = None, forced: dict | No
     if moe.n_shared:
         out = out + mlp(x, p["shared"], cfg)
 
-    counts = torch.bincount(gate_i.reshape(-1), minlength=E)
+    sel = gate_i.reshape(-1).long()        # a bincount whose size does not depend on the data
+    counts = torch.zeros(E, dtype=torch.int64, device=sel.device).index_add_(
+        0, sel, torch.ones_like(sel))
     aux = E * (probs.mean(dim=(0, 1)) * (counts.float() / (B * S) / K)).sum()
     if routes is not None:
         routes.append({"gate_i": gate_i.detach(), "gate_v": gate_v.detach(), "pos": pos,
@@ -605,20 +636,22 @@ class _EmbedGather(torch.autograd.Function):
 def forward_hidden(params, cfg: LMConfig, tokens, dtype=COMPUTE_DTYPE):
     """tokens (B, S) -> final hidden states (B, S, d) in ``dtype`` and the
     aux loss summed over the layers (float32; 0 for a dense model). Each
-    layer runs under ``torch.utils.checkpoint`` while grad is enabled
-    (``remat_policy`` ``"full"``, the configs' default). ``dtype`` is the
-    compute dtype, as in ``prefill``."""
-    if cfg.remat_policy in ("dots", "all_dots"):
-        raise NotImplementedError(f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not ported "
-                                  f"yet: {_REMAT}")
-    if cfg.remat_policy != "full":
+    layer runs under ``torch.utils.checkpoint`` while grad is enabled, by
+    ``cfg.remat_policy``: ``"full"`` (the configs' default) recomputes the
+    whole layer in the backward, ``"dots"`` keeps the products with no batch
+    dimension (the projections and the MLP: ``mm``/``addmm``) and
+    ``"all_dots"`` every product, as the reference's
+    ``dots_with_no_batch_dims_saveable`` and ``dots_saveable`` do. Only what
+    is kept changes, not a value. ``dtype`` is the compute dtype, as in
+    ``prefill``."""
+    if cfg.remat_policy not in _SAVED_DOTS:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
     B, S = tokens.shape
     x = _EmbedGather.apply(params["embed"], tokens).to(dtype)
     pos = torch.arange(S, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["layers"], cfg.n_layers):
-        x, aux_l = _checkpointed(train_layer, x, lp, cfg, pos)
+        x, aux_l = _remat(cfg.remat_policy, train_layer, x, lp, cfg, pos)
         aux = aux + aux_l
     x = rmsnorm(x, params["norm_f"], cfg.norm_eps)
     return x, aux
@@ -659,9 +692,11 @@ def lm_loss(params, cfg: LMConfig, tokens, labels, vocab_chunk: int = 8, dtype=C
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=COMPUTE_DTYPE,
                   device=None) -> dict:
     """Stacked (L, B, Hkv, T, Dh) zero cache: T = ``max_len``, capped at
-    the window with one (the rolling cache)."""
+    the window with one (the rolling cache). A ``meta`` device gives its
+    shapes only (``launch/dryrun.py``)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len(cfg, max_len), cfg.d_head)
-    dev = resolve_device(device)
+    meta = isinstance(device, torch.device) and device.type == "meta"
+    dev = device if meta else resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 

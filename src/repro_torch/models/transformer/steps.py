@@ -11,8 +11,10 @@ warmup=100, total=total_steps)``. ``build_*`` return ``(step_fn, specs,
 None, None)`` as the reference does without a mesh; ``specs`` maps each
 input to ``(shape, dtype)`` (a windowed model's decode cache capped at the
 window). A mesh raises ``NotImplementedError``
-(ROADMAP.md Queue A item 12). ``param_shapes``, ``opt_shapes`` and
-``opt_specs``, whose only caller is ``launch/dryrun.py``, wait for item 13.
+(ROADMAP.md Queue A item 12). ``param_shapes`` and ``opt_shapes`` are the
+parameter and AdamW-state trees as ``meta`` tensors, for
+``launch/dryrun.py``; ``opt_specs``, the state's sharding specs, waits for
+the mesh (item 12).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from repro_torch.configs.base import LMConfig, ShapeSpec
 from repro_torch.models.autodiff import value_and_grad
 from repro_torch.models.transformer import model as M
-from repro_torch.optim import AdamWConfig, adamw_update, cosine_warmup
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_warmup
 from repro_torch.tree import map_tree
 
 _MESH = "ROADMAP.md Queue A item 12 (distribution/sharding.py)"
@@ -31,6 +33,22 @@ _MESH = "ROADMAP.md Queue A item 12 (distribution/sharding.py)"
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(f"LM steps on a mesh are not ported yet: {_MESH}")
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The parameter tree as float32 ``meta`` tensors (no allocation), in the
+    reference's key layout."""
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return torch.empty(node[0], dtype=torch.float32, device="meta")
+
+    return build(M.param_spec(cfg))
+
+
+def opt_shapes(cfg: LMConfig) -> dict:
+    """The AdamW state of ``param_shapes(cfg)`` as ``meta`` tensors."""
+    return adamw_init(param_shapes(cfg))
 
 
 def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig | None = None,

@@ -6,8 +6,8 @@ The hot paths carry spans permanently: ``kcore.decompose`` and
 ``fused-converge`` with its ``device-converge`` and ``stats-reconstruct``
 children (core/runtime.py), the streaming engine's ``batch`` with its
 phases (streaming/engine.py), ``window.advance`` with ``window.diff``
-(temporal/window.py), and ``kernel.build`` around each nvcc run
-(kernels/_build.py). ``record`` adds the invariant monitor's
+(temporal/window.py). ``record`` adds the nvcc builds' ``kernel.build``
+spans (core/jit_telemetry.py) and the invariant monitor's
 ``health.anomaly`` events (obs/health.py).
 
 Design constraints, in order:

@@ -149,5 +149,6 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         fa.flash_attention(q, k, torch.zeros(1, 9, 2, 16))
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, k, k, window=2.5)
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        fa.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    # a meta tensor gets an empty result of the output's shape (the dry-run counts on meta)
+    out = fa.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype

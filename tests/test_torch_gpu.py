@@ -13,7 +13,8 @@ gather's backward on the float kernel, the driver's restart, the trained
 weights served on the flash kernel) against the CPU and itself, and MoE and
 the sliding window (the MoE block's routing and output, its dispatch's
 backward on the float kernel, the rolling cache served past its window)
-against the CPU.
+against the CPU; a real nvcc build counted and traced, a dry-run cell's
+count on the card against its meta count, and the example launchers.
 
 Every test here is marked ``gpu`` and skips where no CUDA device is present;
 the file imports neither ``jax`` nor the reference, so it runs on a machine
@@ -1076,3 +1077,72 @@ def test_moe_weights_drawn_on_the_card(cuda):
     assert moe["w_up"].dtype == torch.bfloat16 and moe["w_up"].device.type == "cuda"
     assert float(moe["w_up"].float().std()) == pytest.approx(0.02, rel=0.05)
     assert not torch.equal(moe["w_up"][0], moe["w_up"][1])
+
+
+def test_a_real_build_is_counted_and_traced(cuda, tmp_path, monkeypatch):
+    """nvcc for real into an empty build directory: ``compile_count`` and
+    ``compile_seconds`` move with ``_build``'s counters, and the build under
+    tracing is one ``kernel.build`` span."""
+    from repro_torch.core import jit_telemetry
+    from repro_torch.kernels import _build
+    from repro_torch.obs import trace
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    c0, s0 = jit_telemetry.compile_count(), jit_telemetry.compile_seconds()
+    trace.reset()
+    trace.enable()
+    try:
+        secs = _build.build_all(["kcore_hindex"])
+        events = trace.events()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert jit_telemetry.compile_count() - c0 == 1 == _build.build_count() - c0
+    assert jit_telemetry.compile_seconds() - s0 == pytest.approx(secs["kcore_hindex"])
+    assert secs["kcore_hindex"] > 0
+    assert [e["args"]["kernels"] for e in events if e["name"] == "kernel.build"] == ["kcore_hindex"]
+    assert "sm_90a" in _build.ptxas_log("kcore_hindex")
+
+
+def test_dryrun_cell_on_the_card_equals_its_meta_count(cuda):
+    """``dryrun --run`` of a DIN cell: the count on the card equals the meta
+    count, the bag's booked calls its launches, the share at most 1."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("din", "serve_p99", save=False, run=True)
+    run = rec["run"]
+    assert rec["status"] == "OK" and run["status"] == "OK", rec
+    assert run["same_count_as_meta"] and run["bookings_equal_launches"]
+    assert run["launches"] == {"embedding_bag": 1}
+    assert 0 < run["roofline_share"] <= 1
+    assert rec["memory"]["fits_card"] is True
+
+
+def test_a_checkpoint_recompute_in_the_backward_is_booked(cuda):
+    """On the card the backward runs on the autograd engine's thread: a
+    checkpointed float segment sum recomputed there is booked as often as it
+    is launched."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.launch.step_cost import StepCounter
+
+    lay = sk.segment_layout(torch.tensor([0, 0, 2, 3, 3, 3], device=cuda), 4)
+    vals = torch.randn(6, 8, device=cuda, requires_grad=True)
+    counter, before = StepCounter(), sk.float_launches
+    with counter:
+        checkpoint(lambda v: sk.segment_sum_float(v, lay).square().sum(), vals,
+                   use_reentrant=False).backward()
+    assert sk.float_launches - before == 2 == counter.by_kernel["segment_sum_float"]["calls"]
+
+
+def test_launchers_on_the_card_name_it_first(cuda, capsys):
+    from repro_torch.launch import paper_experiments, quickstart
+
+    hk.launches = sk.launches = 0
+    quickstart.main([])
+    paper_experiments.main(["--graph", "EEN"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("device: ") and "Fig-1 cores :" in out[1]
+    assert sum(line.startswith("device: ") for line in out) == 2
+    assert "=== Table I row (EEN) ===" in out
+    assert sk.launches > 0

@@ -45,7 +45,13 @@ for name in ("repro_torch.temporal", "repro_torch.temporal.events", "repro_torch
              "repro_torch.launch.graphcast_weather", "repro_torch.data",
              "repro_torch.data.pipeline", "repro_torch.runtime", "repro_torch.runtime.driver",
              "repro_torch.models.transformer.steps", "repro_torch.models.autodiff",
-             "repro_torch.launch.train", "repro_torch.launch.train_lm_e2e"):
+             "repro_torch.launch.train", "repro_torch.launch.train_lm_e2e",
+             "repro_torch.launch.quickstart", "repro_torch.launch.paper_experiments",
+             "repro_torch.obs.validate", "repro_torch.core.jit_telemetry",
+             "repro_torch.kernels.cost", "repro_torch.launch.step_cost",
+             "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+             "repro_torch.launch.hillclimb", "repro_torch.distribution.collectives",
+             "repro_torch.launch.path_timing"):
     assert name in names, name
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
