@@ -322,7 +322,24 @@ of which must pass:
    kernel at that shape held against ``attention_ref`` and its float32
    evaluation on its first and last 512 query rows, in blocks of 64 rows,
    each by the bf16 rule at its own largest magnitude.
-27. The ``kernels`` JSON line, after each phase's wall: each kernel's
+27. GNN message passing on a flat mesh (budget 45 s). (a) The float
+   kernel's unrounded form (``segment_sum_float_partial``, a shard's
+   partial) on one shard's slice of a GraphCast block's messages, bf16 and
+   float32 in, float32 out: within the float32 summation bound of its plain
+   version and of float64, and rounded once bit for bit the float form's
+   output. (b) GraphCast at full ``CONFIG`` (d 512, 16 layers) on
+   full_graph_sm's sizes (2,708 nodes, 10,556 arcs, 1,433 features) on
+   one-process meshes of 2 and 4 shards, and SchNet, EGNN and MACE at full
+   ``CONFIG`` on 128 molecules of 30 atoms on 4 shards: one train step each
+   after a warm-up, its loss, grad norm and gradients held against the
+   one-device step on the card (and a float64 step) by phase 23's rule; the
+   float kernel's launches a step and a shard, the sharded and unsharded
+   branch counts, the step walls beside the one-device walls and the
+   collectives' bytes printed. (c) Two gloo ranks of 2 shards each on the
+   card: GraphCast's scatter and gather probes, forward and backward, bit
+   for bit the 4-shard one-process run's, and its train step held to the
+   one-device step by the same rule.
+28. The ``kernels`` JSON line, after each phase's wall: each kernel's
    launches in the main path's runs, its largest error against its plain
    version, its time a call and on the device (flash attention's under
    ``timed``), the plain version's, the library call's and the bound, each
@@ -330,8 +347,8 @@ of which must pass:
    ``launch/roofline.py``'s peaks); the float form of the segment sum as
    its own entry, ``segment_sum_float`` (the weather shape's numbers; every
    timed shape under ``timed``; its launches include the training runs',
-   GNN and LM, the Mixtral train step's dispatch backward and phase 26's
-   cell).
+   GNN and LM, the Mixtral train step's dispatch backward, phase 26's cell
+   and phase 27's mesh steps, a launch a local shard for each scatter).
 
 It then prints the card line, the ``kernels`` JSON line and, last, the ``ok``
 line. It exits non-zero, without the ``ok`` line, if any check fails, if no
@@ -3618,6 +3635,313 @@ def moe_and_window(torch, np, dev, st_flash, st_float, smi, small: bool = False)
 # example launchers in process, the reference CI's two trace gates on the traces of phases 19 and
 # 21, and three dry-run cells on the card, each a kernel's (configs/base.py's shapes; prefill_32k
 # cut to batch 1, a shape the flash cases do not run, held on FLASH_ROWS of its rows at each end)
+# the GNN mesh phase: GraphCast at full CONFIG on full_graph_sm's sizes (2,708 nodes, 5,278 edges:
+# 10,556 arcs, 1,433 features, 7 classes) on one-process meshes of 2 and 4 shards; SchNet, EGNN
+# and MACE on 128 molecules of 30 atoms (3,840 nodes, 16,384 arcs) on 4 shards; two gloo ranks of
+# 2 shards each with the GraphCast step
+MESH = {"shards": (2, 4), "ranks": 2, "seed": 0, "full_graph": (2708, 5278, 1433, 7),
+        "molecules": (128, 30, 64), "budget_s": 45, "rank_timeout_s": 240}
+# one rank of the two-process GraphCast run: the scatter and gather probes of the parent's inputs,
+# forward and backward, and one train step; writes its outputs for the parent to compare
+MESH_RANK_SCRIPT = r"""
+import json, pickle, sys, time
+import numpy as np
+import torch
+from repro_torch.distribution import collectives, compat
+rank, nproc, port, device, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+compat.init_multiprocess(f"127.0.0.1:{port}", nproc, rank, timeout_s=120)
+from repro_torch.kernels.segment_sum import ops as sk
+from repro_torch.models.gnn import common, steps
+from repro_torch.optim import adamw_init
+from repro_torch.tree import leaves
+inp = pickle.load(open(f"{d}/in.pkl", "rb"))
+mesh = compat.global_mesh("shard", local_shards=inp["shards"] // nproc, device=device)
+cfg, shape, batch = inp["cfg"], inp["shape"], inp["batch"]
+step, _, _, _ = steps.build_train(cfg, shape, mesh)
+lays = steps.mesh_layouts(cfg, shape, batch, mesh)
+arcs = lays["layout"]
+mine = lambda a: common._own_rows(torch.as_tensor(a), mesh).to(mesh.device)
+probe = {}
+h = mine(inp["h"]).to(torch.bfloat16).requires_grad_(True)
+e = mine(inp["e"]).to(torch.bfloat16).requires_grad_(True)
+sk.float_launches = 0
+y = common.scatter_sum(e, arcs)
+a, b = common.gather_rows_multi(h, (arcs.src, arcs.dst))
+torch.autograd.backward([y, a, b], [mine(inp["gy"]).to(torch.bfloat16),
+                                    mine(inp["ga"]).to(torch.bfloat16),
+                                    mine(inp["gb"]).to(torch.bfloat16)])
+probe_launches = sk.float_launches
+for k, t in (("y", y), ("a", a), ("b", b), ("e_grad", e.grad), ("h_grad", h.grad)):
+    probe[k] = t.detach().float().cpu().numpy()
+params = {k: v for k, v in inp["params"].items()}
+params = common.params_to(params, mesh.device)
+staged = steps.stage_batch(batch, mesh)
+step(params, adamw_init(params), staged, **lays)       # warm-up
+torch.cuda.synchronize() if device == "cuda" else None
+common.reset_branches()
+sk.float_launches = 0
+t0 = time.perf_counter()
+with collectives.collective_bytes() as tally:
+    new, opt, m = step(params, adamw_init(params), staged, **lays)
+    loss = float(m["loss"])
+wall = time.perf_counter() - t0
+out = {"rank": rank, "device": str(mesh.device), "local_shards": mesh.local_shards,
+       "probe": probe, "probe_launches": probe_launches, "wall_s": wall, "loss": loss,
+       "grad_norm": float(m["grad_norm"]), "m": [t.cpu() for t in leaves(opt["m"])],
+       "launches": sk.float_launches, "branches": json.loads(json.dumps(common.BRANCHES)),
+       "collectives": tally}
+pickle.dump(out, open(f"{d}/rank{rank}.pkl", "wb"))
+print(json.dumps({"rank": rank, "ok": True}))
+"""
+
+
+def cora_sized_batch(np, common, d_feat: int, n_classes: int, n: int, m: int, seed: int):
+    """A batch of a random simple graph of exactly ``n`` nodes and ``m``
+    edges (2m arcs), as full_graph_sm's sizes need."""
+    from repro_torch.graph.structs import Graph
+
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, n, size=(3 * m, 2))
+    e = e[e[:, 0] != e[:, 1]]
+    key = np.unique(np.minimum(e[:, 0], e[:, 1]) * n + np.maximum(e[:, 0], e[:, 1]))
+    key = rng.permutation(key)[:m]
+    g = Graph.from_edges(np.stack([key // n, key % n], 1), n=n)
+    return common.batch_from_graph(g, d_feat, n_classes, seed=seed)
+
+
+def gnn_mesh(torch, np, dev, st_float, smi, small: bool = False) -> int:
+    """The GNN mesh phase: the float kernel's unrounded shard partial against
+    its plain version at the mesh path's shapes, then train steps on flat
+    meshes of one process (GraphCast on 2 and 4 shards; SchNet, EGNN and MACE
+    on 4) and of two gloo processes (GraphCast, 2 shards each), each held
+    against the one-device step on the card by phase 23's rule. Returns the
+    float kernel's launches in the mesh steps. ``small`` (the CPU rehearsal)
+    runs the SMOKE configs."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import tempfile
+
+    from repro_torch import checks
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs.base import GNN_SHAPES, ShapeSpec
+    from repro_torch.distribution import collectives, compat
+    from repro_torch.kernels.segment_sum import ops as sk
+    from repro_torch.models.gnn import common, steps
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+
+    on_card = dev.type == "cuda"
+    card = smi.replace("\n", "; ") if smi else "no card"
+    cfg_of = get_smoke if small else get_config
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    n, m_edges, d_feat, n_classes = MESH["full_graph"]
+    full = cora_sized_batch(np, common, d_feat, n_classes, n, m_edges, MESH["seed"])
+    full_shape = next(s for s in GNN_SHAPES if s.name == "full_graph_sm")
+    B, atoms, bonds = MESH["molecules"]
+    mol_shape = ShapeSpec("molecule", "molecule", {"n_nodes": atoms, "n_edges": bonds, "batch": B})
+
+    # a. the kernel's unrounded partial: one shard's slice of a GraphCast block's messages
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(27)
+    gcfg = cfg_of("graphcast")
+    E = full["src"].shape[0]
+    per = E // 4
+    ids = torch.as_tensor(full["dst"][:per].astype(np.int64), device=dev)
+    lay = sk.segment_layout(ids, n)
+    for dtype in (torch.bfloat16, torch.float32):
+        v = torch.as_tensor(rng.standard_normal((per, gcfg.d_hidden)).astype(np.float32),
+                            device=dev).to(dtype)
+        got = sk.segment_sum_float_partial(v, lay)
+        want = sk.segment_sum_float_ref(v.float(), ids, n)
+        exact = torch.zeros((n, v.shape[1]), dtype=torch.float64, device=dev).index_add_(
+            0, ids, v.double())
+        excess, err = checks.segment_sum_excess(v, ids, n, got, want)
+        excess64, _ = checks.segment_sum_excess(v, ids, n, got, exact)
+        st_float["excess"] = max(st_float["excess"], excess)
+        st_float["err"] = max(st_float["err"], err)
+        rounded = sk.segment_sum_float(v, lay)
+        check(got.dtype == torch.float32 and excess <= 0 and excess64 <= 0,
+              f"segment_sum_float_partial {str(dtype)[6:]} shard slice ({per} arcs into {n} rows, "
+              f"F {v.shape[1]}): float32 out, max|kernel - plain| {err:.3g} within the float32 "
+              f"summation bound (excess {excess:.3g}; against float64 {excess64:.3g})")
+        check(torch.equal(got.to(dtype), rounded),
+              f"segment_sum_float_partial {str(dtype)[6:]}: rounded once, bit for bit the float "
+              f"form's output")
+    del v, got, want, exact, rounded
+    print(f"  (a) the unrounded partial in {time.perf_counter() - t0:.1f} s ({card})")
+
+    def timed_step(step, *args, **kw):
+        step(*args, **kw)                                          # warm-up
+        sync()
+        common.reset_branches()
+        sk.float_launches = 0
+        t1 = time.perf_counter()
+        with collectives.collective_bytes() as tally:
+            res = step(*args, **kw)
+            sync()
+        return res, time.perf_counter() - t1, sk.float_launches, tally
+
+    def run(cfg, shape, batch, d_in, ncls, shards):
+        """One step on each mesh of ``shards`` after a warm-up, held against
+        the one-device step (also timed after a warm-up) and a float64
+        step from the same weights. Returns the weights, the one-device and
+        float64 steps, and the float kernel's launches in the mesh steps."""
+        params = steps.init_params(cfg, MESH["seed"], d_in=d_in, n_classes=ncls, device=dev)
+        rule = "bf16" if cfg.kind in ("mace", "graphcast") else "float32"
+        steps.build_train(cfg, shape, None)
+        one_step = steps.make_train_step(cfg, shape)
+        on = common.batch_to(batch, dev)
+        one, one_wall, one_n, _ = timed_step(one_step, params, adamw_init(params), on)
+        p64 = common.params_to(params, dtype=torch.float64)
+        with common.plain_scatter():
+            f64 = one_step(p64, adamw_init(p64), on)
+        del on, p64
+        total = 0
+        for D in shards:
+            mesh = compat.make_mesh((D,), ("data",), device=dev)
+            step, _, _, _ = steps.build_train(cfg, shape, mesh)
+            staged = steps.stage_batch(batch, mesh)
+            lays = steps.mesh_layouts(cfg, shape, batch, mesh)
+            res, wall, nl, tally = timed_step(step, params, adamw_init(params), staged, **lays)
+            br = {k: dict(v) for k, v in common.BRANCHES.items()}
+            total += nl
+            print(f"  {cfg.name} ({cfg.n_layers} layers, d {cfg.d_hidden}) on {shape.name}, "
+                  f"{D} shards in one process: step {wall * 1e3:.1f} ms (one device "
+                  f"{one_wall * 1e3:.1f} ms, {one_n} float kernel launches); float kernel "
+                  f"launches {nl} ({nl / D:.1f} a shard); scatters sharded "
+                  f"{br['scatter']['sharded']}, unsharded {br['scatter']['unsharded']}; gathers "
+                  f"sharded {br['gather']['sharded']}, unsharded {br['gather']['unsharded']}; "
+                  f"collectives {tally['counts']}, {tally['total_bytes']:.0f} bytes on the wire "
+                  f"(from the shapes); loss {float(res[2]['loss']):.6f} ({card})")
+            check(br["scatter"]["sharded"] > 0 and br["gather"]["sharded"] > 0,
+                  f"{cfg.name} on {D} shards took the sharded scatter and gather")
+            if on_card:
+                check(nl > 0, f"{cfg.name} on {D} shards launched the float kernel")
+            for what, pick in [("loss", lambda o: o[2]["loss"]),
+                               ("grad norm", lambda o: o[2]["grad_norm"]),
+                               ("gradients (AdamW's first moments)", lambda o: leaves(o[1]["m"]))]:
+                args = [common.params_to(pick(o), "cpu") for o in (res, one, f64)]
+                r = checks.hold_bf16(*args) if rule == "bf16" else checks.hold(*args)
+                held(f"{cfg.name} on {shape.name}, {D} shards, {what}: against the one-device "
+                     f"step on the card (reference route)", r, rule)
+            del staged, lays, res
+        steps.build_train(cfg, shape, None)
+        return params, one, f64, total
+
+    # b. GraphCast at full CONFIG on 2 and 4 shards; SchNet, EGNN and MACE on 4
+    t0 = time.perf_counter()
+    gparams, gone, gf64, n_launch = run(gcfg, full_shape, full, d_feat, n_classes, MESH["shards"])
+    launches += n_launch
+    print(f"  (b) GraphCast in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for arch in ("schnet", "egnn", "mace"):
+        cfg = cfg_of(arch)
+        mol = common.batch_molecules(B, atoms, bonds, cfg.params.get("n_species", 10), seed=0)
+        launches += run(cfg, mol_shape, mol, None, 0, (4,))[3]
+    print(f"  (b) SchNet, EGNN and MACE in {time.perf_counter() - t0:.1f} s")
+
+    # c. two gloo ranks of 2 shards each: probes bit-equal to 4 shards in one process, the step
+    t0 = time.perf_counter()
+    D = 4
+    mesh = compat.make_mesh((D,), ("data",), device=dev)
+    steps.build_train(gcfg, full_shape, mesh)
+    arcs = steps.mesh_layouts(gcfg, full_shape, full, mesh)["layout"]
+    prng = np.random.default_rng(28)
+    E = full["src"].shape[0]
+    probe_in = {k: prng.standard_normal(s).astype(np.float32) for k, s in
+                (("h", (n, gcfg.d_hidden)), ("e", (E, gcfg.d_hidden)), ("gy", (n, gcfg.d_hidden)),
+                 ("ga", (E, gcfg.d_hidden)), ("gb", (E, gcfg.d_hidden)))}
+    t = {k: torch.as_tensor(v, device=dev).to(torch.bfloat16) for k, v in probe_in.items()}
+    h, e = t["h"].clone().requires_grad_(True), t["e"].clone().requires_grad_(True)
+    y = common.scatter_sum(e, arcs)
+    a, b = common.gather_rows_multi(h, (arcs.src, arcs.dst))
+    torch.autograd.backward([y, a, b], [t["gy"], t["ga"], t["gb"]])
+    want = {"y": y, "a": a, "b": b, "e_grad": e.grad, "h_grad": h.grad}
+    want = {k: v.detach().float().cpu().numpy() for k, v in want.items()}
+    del t, h, e, y, a, b
+    steps.build_train(gcfg, full_shape, None)
+    ranks = MESH["ranks"]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        with open(f"{d}/in.pkl", "wb") as f:
+            pickle.dump({"shards": D, "cfg": gcfg, "shape": full_shape, "batch": full,
+                         "params": common.params_to(gparams, "cpu"), **probe_in}, f)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK_SCRIPT, str(r), str(ranks),
+                                   str(port), dev.type, d], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+                 for r in range(ranks)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MESH["rank_timeout_s"]))
+        except subprocess.TimeoutExpired:
+            outs = [("", "timed out")] * ranks
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t1
+        reps = []
+        for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+            ok = p.returncode == 0 and os.path.exists(f"{d}/rank{rank}.pkl")
+            check(ok, f"mesh rank {rank} ran{'' if ok else ': ' + err[-2000:]}")
+            if ok:
+                with open(f"{d}/rank{rank}.pkl", "rb") as f:
+                    reps.append(pickle.load(f))
+    if len(reps) == ranks:
+        for rep in reps:
+            launches += rep["launches"] + rep["probe_launches"]
+            print(f"    rank {rep['rank']}: device {rep['device']}, {rep['local_shards']} of {D} "
+                  f"shards; step {rep['wall_s'] * 1e3:.1f} ms; float kernel launches "
+                  f"{rep['launches']} ({rep['launches'] / rep['local_shards']:.1f} a local shard); "
+                  f"branches {rep['branches']}; collectives {rep['collectives']['counts']}, "
+                  f"{rep['collectives']['total_bytes']:.0f} bytes; loss {rep['loss']:.6f}")
+            if on_card:
+                check(rep["device"].startswith("cuda") and rep["launches"] > 0,
+                      f"mesh rank {rep['rank']} ran on the card and launched the float kernel")
+        for k in want:
+            parts = [rep["probe"][k] for rep in reps]
+            two = np.concatenate(parts) if parts[0].shape[0] != want[k].shape[0] else parts[0]
+            check(np.array_equal(two, want[k]),
+                  f"GraphCast probe {k}: {ranks} processes of {D // ranks} shards bit-equal to "
+                  f"{D} shards in one process (bf16 (n, {gcfg.d_hidden}) rows, {E} arcs)")
+        check(reps[0]["loss"] == reps[1]["loss"], "both ranks report one loss")
+        rule = "bf16"
+        for what, pick in [("loss", lambda o: o["loss"]), ("grad norm", lambda o: o["grad_norm"]),
+                           ("gradients (AdamW's first moments)", lambda o: o["m"])]:
+            got = pick(reps[0])
+            args = [torch.as_tensor(got) if not isinstance(got, list) else got,
+                    common.params_to(gone[2]["loss"] if what == "loss" else
+                                     gone[2]["grad_norm"] if what == "grad norm"
+                                     else leaves(gone[1]["m"]), "cpu"),
+                    common.params_to(gf64[2]["loss"] if what == "loss" else
+                                     gf64[2]["grad_norm"] if what == "grad norm"
+                                     else leaves(gf64[1]["m"]), "cpu")]
+            held(f"{gcfg.name} on {ranks} gloo processes, {what}: against the one-device step on "
+                 f"the card (reference route)", checks.hold_bf16(*args), rule)
+    print(f"  (c) {ranks} processes in {wall:.1f} s with start-up; (c) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del gparams, gone, gf64
+    if on_card:
+        torch.cuda.empty_cache()
+    spent = time.perf_counter() - t_phase
+    print(f"  phase wall {spent:.1f} s (budget {MESH['budget_s']} s; {card})")
+    return launches
+
+
 TRACE_DIR = ROOT / "build" / "traces"
 LAUNCH = {"budget_s": 30,
           "cells": (("din", "serve_bulk", None), ("graphcast", "full_graph_sm", None),
@@ -4204,7 +4528,14 @@ def main(device: str = "cuda", spr_scale: float = SPR_SCALE) -> int:
     del g, core_bz, spr_fused
 
     # ------------------------------------------------------------------ #
-    phase("27. kernels")
+    phase(f"27. GNN message passing on a flat mesh: GraphCast at full width on "
+          f"{' and '.join(map(str, MESH['shards']))} shards, SchNet, EGNN and MACE on 4, "
+          f"{MESH['ranks']} gloo processes")
+    launches["segment_sum_float"] += gnn_mesh(torch, np, dev, stats["segment_sum_float"], smi,
+                                              small=device != "cuda")
+
+    # ------------------------------------------------------------------ #
+    phase("28. kernels")
     print("phase walls: " + "; ".join(f"{title.split(':')[0].split('.')[0]} {wall:.1f} s"
                                       for title, _, wall in phase_walls[:-1]))
     kernels = []

@@ -1,1 +1,1 @@
-"""Meshes and collectives of the sharded k-core engines (``compat``)."""
+"""Meshes and collectives (``compat``), and sharding specs on them (``sharding``)."""

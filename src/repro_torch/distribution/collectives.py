@@ -1,12 +1,12 @@
 """Bytes on the wire of the mesh's collectives, from their shapes.
 
-``compat.all_gather`` and ``compat.psum`` over a mesh of more than one shard
-note each call here (``note_collective``), whether or not it crosses a
-process. ``collective_bytes`` tallies them into the record that the
+``compat.all_gather``, ``compat.psum`` and ``compat.reduce_scatter`` over a
+mesh of more than one shard note each call here (``note_collective``),
+whether or not it crosses a process, and so do their backwards. ``collective_bytes`` tallies them into the record that the
 reference's ``repro.launch.hlo_analysis.collective_bytes`` parses out of HLO
 text: ``{"bytes_by_kind", "counts", "total_bytes"}``, with its ring
-multipliers (all-gather: result bytes x (n-1)/n; all-reduce: 2 x operand
-bytes x (n-1)/n). ``launch/roofline.py`` and ``launch/dryrun.py`` read it.
+multipliers (all-gather: result bytes x (n-1)/n; reduce-scatter: operand
+bytes x (n-1)/n; all-reduce: 2 x operand bytes x (n-1)/n). ``launch/roofline.py`` and ``launch/dryrun.py`` read it.
 
 Tallies are open per thread, as the step counter of ``launch/step_cost.py``
 is. With none open on the calling thread, noting a collective checks one
@@ -29,9 +29,9 @@ _tallies = _Tallies()
 def wire_bytes(kind: str, nbytes: float, group: int) -> float:
     """Bytes on the wire of one collective over ``group`` members, the
     reference's ring multipliers: ``nbytes`` is the all-gather's result and
-    the all-reduce's operand."""
+    the reduce-scatter's and the all-reduce's operand."""
     ring = (group - 1) / max(group, 1)
-    if kind == "all-gather":
+    if kind in ("all-gather", "reduce-scatter"):
         return nbytes * ring
     if kind == "all-reduce":
         return 2 * nbytes * ring

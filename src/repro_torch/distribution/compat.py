@@ -26,10 +26,25 @@ holds one device, and NCCL refuses two ranks on one GPU. Gloo's
 through host memory themselves); bool masks travel as uint8. The group has
 a timeout, so ranks that fall out of step fail instead of hanging.
 ``cpu_collectives_hint`` (a jax backend flag) has no torch meaning and is
-not ported. Each ``all_gather`` and ``psum`` over a mesh of more than one
-shard is noted, from its shapes, in any open
+not ported. Each ``all_gather``, ``psum`` and ``reduce_scatter`` over a mesh
+of more than one shard is noted, from its shapes, in any open
 ``distribution.collectives.collective_bytes`` tally, whether or not it
 crosses a process.
+
+The GNN family's flat-row sharding (``models/gnn/common.py``) runs its
+models through these collectives with autograd. A tensor is either this
+process's row blocks (complete: no other process holds those rows) or
+held whole by every process. A whole tensor's gradient is held as shares,
+one a process, that add up to it; a row block's gradient is held complete.
+So a train step seeds its replicated loss with 1/world on every process and
+sums the parameters' gradients (whole tensors) over the processes. Under
+that rule ``all_gather``'s backward is the reduce-scatter (this process's
+rows of the shares' sum), ``reduce_scatter``'s backward is the all-gather
+of the row blocks' gradients, and ``psum``'s backward is the ``psum`` of the
+shares. Float sums over processes or shards are taken in a fixed order, from
+0 in float32 (float64 for float64) and rounded once, so that a mesh of D
+shards in one process and the same D shards over several processes give
+the same bits.
 """
 
 from __future__ import annotations
@@ -162,25 +177,114 @@ def stage_to_mesh(arr, mesh: Mesh) -> torch.Tensor:
                            device=mesh.device)
 
 
+def _gathered(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """Every process's ``x``, in rank order (gloo; bool masks as uint8)."""
+    send = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+    parts = [torch.empty_like(send) for _ in range(mesh.world)]
+    dist.all_gather(parts, send, group=mesh.group)
+    return [p.to(x.dtype) for p in parts] if x.dtype == torch.bool else parts
+
+
+def _ordered_sum(parts, dtype: torch.dtype) -> torch.Tensor:
+    """``parts`` added in order from 0, in float32 (float64 for float64),
+    rounded once to ``dtype``."""
+    acc = torch.zeros(parts[0].shape, device=parts[0].device,
+                      dtype=torch.float64 if dtype == torch.float64 else torch.float32)
+    for p in parts:
+        acc += p
+    return acc.to(dtype)
+
+
+def _own_rows_of_sum(g: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This process's rows of the sum over processes of ``g`` (every
+    process's whole array): the reduce-scatter."""
+    note_collective("reduce-scatter", g.numel() * g.element_size(), mesh.size)
+    rows = g.shape[0] // mesh.world
+    lo = mesh.rank * rows
+    return _ordered_sum([p[lo:lo + rows] for p in _gathered(g, mesh)], g.dtype)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return torch.cat(_gathered(x, mesh))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_rows_of_sum(g, ctx.mesh), None
+
+
 def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This process's shards ``x`` (leading dimension over the local
-    shards) concatenated with every other process's, in shard order."""
+    shards, or the rows of its row blocks) concatenated with every other
+    process's, in shard order. Differentiable: the backward is this
+    process's rows of the gradient's sum over processes."""
     if mesh.size > 1:
         note_collective("all-gather", x.numel() * x.element_size() * mesh.world, mesh.size)
     if mesh.world == 1:
         return x
-    send = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
-    parts = [torch.empty_like(send) for _ in range(mesh.world)]
-    dist.all_gather(parts, send, group=mesh.group)
-    return torch.cat(parts).to(x.dtype)
+    return _AllGather.apply(x, mesh)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dtype):
+        ctx.mesh, ctx.shape, ctx.dtype = mesh, x.shape, x.dtype
+        L, blk = mesh.local_shards, x.shape[1] // mesh.size
+        parts = x.unbind(0) if mesh.world == 1 else torch.cat(_gathered(x, mesh)).unbind(0)
+        lo, hi = mesh.shard_offset * blk, (mesh.shard_offset + L) * blk
+        return _ordered_sum([p[lo:hi] for p in parts], dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        if mesh.size > 1:
+            note_collective("all-gather", g.numel() * g.element_size() * mesh.world, mesh.size)
+        whole = g if mesh.world == 1 else torch.cat(_gathered(g.contiguous(), mesh))
+        return whole.to(ctx.dtype).unsqueeze(0).expand(ctx.shape), None, None
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The tiled reduce-scatter of this process's shard partials: ``x`` (L,
+    R, ...) holds the partials of its L = ``mesh.local_shards`` shards, each
+    over all R rows (R a multiple of the mesh's D shards). Returns this
+    process's L row blocks, (L * R / D, ...): each row the sum of the D
+    shards' partials of it, added in shard order from 0 in float32 (float64
+    for float64) and rounded once to ``dtype`` (default ``x``'s). The same
+    bits on one process and across processes. Differentiable: the backward
+    gives every local partial the all-gathered gradient of the rows."""
+    L, R = x.shape[0], x.shape[1]
+    if L != mesh.local_shards or R % mesh.size:
+        raise ValueError(f"reduce_scatter takes ({mesh.local_shards}, R, ...) partials with R a "
+                         f"multiple of {mesh.size}, got {tuple(x.shape)}")
+    if mesh.size > 1:
+        note_collective("reduce-scatter", x[0].numel() * x.element_size(), mesh.size)
+    return _ReduceScatter.apply(x, mesh, dtype or x.dtype)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _ordered_sum(_gathered(x.contiguous(), mesh), x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh), None
 
 
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum of ``x`` (an integer tensor) over every process of the mesh."""
+    """Sum of ``x`` over every process of the mesh. Integers add exactly
+    (an all-reduce); floats in rank order from 0 in float32 (float64 for
+    float64), rounded once, and differentiably: the backward is the
+    ``psum`` of the gradient's shares (the module docstring)."""
     if mesh.size > 1:
         note_collective("all-reduce", x.numel() * x.element_size(), mesh.size)
     if mesh.world == 1:
         return x
+    if x.is_floating_point():
+        return _PSum.apply(x, mesh)
     total = x.clone()
     dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
     return total

@@ -47,7 +47,10 @@
 // layout of the segment ids (`order`, a stable argsort of them, and
 // `row_ptr`). It still replaces src/repro/kernels/segment_sum/kernel.py:
 // _seg_kernel for float values: that TPU kernel is dtype-generic, and the
-// float form is every scatter_sum of SchNet, EGNN, GraphCast and MACE.
+// float form is every scatter_sum of SchNet, EGNN, GraphCast and MACE. Its
+// third entry, segment_sum_float_bf16_f32, takes bf16 values and writes the
+// float32 sums unrounded: each shard's partial of the GNNs' sharded scatter,
+// which adds the shards' partials in shard order before its one rounding.
 //
 // Its definition: row r's d arcs, in `order`, are cut into stretches of
 // kStretch consecutive arcs, the last maybe shorter; each stretch is
@@ -298,8 +301,8 @@ __device__ __forceinline__ unsigned bf16_bits(float x) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-// Loads of kVec values (one 16-byte load, or one element), their float32 adds
-// into acc in order, and the rounded store.
+// Loads of kVec values (one 16-byte load, or one element) and their float32
+// adds into acc in order.
 template <typename T, bool kVector>
 struct Io;
 
@@ -314,9 +317,6 @@ struct Io<float, true> {
     acc[2] += v.z;
     acc[3] += v.w;
   }
-  __device__ static void store(float* p, const float* acc) {
-    *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  }
 };
 
 template <>
@@ -325,7 +325,6 @@ struct Io<float, false> {
   using Raw = float;
   __device__ static Raw load(const float* p) { return __ldg(p); }
   __device__ static void add(float* acc, const Raw& v) { acc[0] += v; }
-  __device__ static void store(float* p, const float* acc) { *p = acc[0]; }
 };
 
 template <>
@@ -345,14 +344,6 @@ struct Io<__nv_bfloat16, true> {
     acc[6] += bf16_lo(v.w);
     acc[7] += bf16_hi(v.w);
   }
-  __device__ static void store(__nv_bfloat16* p, const float* acc) {
-    uint4 w;
-    w.x = bf16_bits(acc[0]) | (bf16_bits(acc[1]) << 16);
-    w.y = bf16_bits(acc[2]) | (bf16_bits(acc[3]) << 16);
-    w.z = bf16_bits(acc[4]) | (bf16_bits(acc[5]) << 16);
-    w.w = bf16_bits(acc[6]) | (bf16_bits(acc[7]) << 16);
-    *reinterpret_cast<uint4*>(p) = w;
-  }
 };
 
 template <>
@@ -363,9 +354,6 @@ struct Io<__nv_bfloat16, false> {
     return __ldg(reinterpret_cast<const unsigned short*>(p));
   }
   __device__ static void add(float* acc, const Raw& v) { acc[0] += __uint_as_float((unsigned)v << 16); }
-  __device__ static void store(__nv_bfloat16* p, const float* acc) {
-    *reinterpret_cast<unsigned short*>(p) = (unsigned short)bf16_bits(acc[0]);
-  }
 };
 
 // V float32 partials, stored by a stretch of a wide row.
@@ -379,6 +367,37 @@ __device__ __forceinline__ void store_partial(float* p, const float* acc) {
       *reinterpret_cast<float4*>(p + q) = make_float4(acc[q], acc[q + 1], acc[q + 2], acc[q + 3]);
   }
 }
+
+// The store of V float32 sums to an output of type O, rounded once: bf16
+// outputs (V = 8 on the 16-byte path, else 1), or float32 ones (V = 1, 4 or
+// 8), which are the unrounded sums: a bf16 input's float32 partials (the
+// bf16_f32 entry point) or a float32 input's sums.
+template <typename O, int V>
+struct Out;
+
+template <int V>
+struct Out<float, V> {
+  __device__ static void store(float* p, const float* acc) { store_partial<V>(p, acc); }
+};
+
+template <>
+struct Out<__nv_bfloat16, 8> {
+  __device__ static void store(__nv_bfloat16* p, const float* acc) {
+    uint4 w;
+    w.x = bf16_bits(acc[0]) | (bf16_bits(acc[1]) << 16);
+    w.y = bf16_bits(acc[2]) | (bf16_bits(acc[3]) << 16);
+    w.z = bf16_bits(acc[4]) | (bf16_bits(acc[5]) << 16);
+    w.w = bf16_bits(acc[6]) | (bf16_bits(acc[7]) << 16);
+    *reinterpret_cast<uint4*>(p) = w;
+  }
+};
+
+template <>
+struct Out<__nv_bfloat16, 1> {
+  __device__ static void store(__nv_bfloat16* p, const float* acc) {
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)bf16_bits(acc[0]);
+  }
+};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -429,12 +448,12 @@ __device__ __forceinline__ void sum_in_registers(const T* col, long long ld,
 // One item on the register path (any group, any F): a stretch into its
 // partial, or each row of `merge` batches (rows of at most kStretch arcs)
 // into its output, one after another.
-template <typename T, bool kVector>
+template <typename T, typename O, bool kVector>
 __device__ __forceinline__ void item_in_registers(
     const T* __restrict__ vals, long long ld, const long long* __restrict__ order,
     const long long* __restrict__ row_ptr, const long long* __restrict__ wide_rows,
     const long long* __restrict__ wide_ptr, const long long* __restrict__ owner,
-    const long long* __restrict__ batches, T* __restrict__ out, float* __restrict__ partials,
+    const long long* __restrict__ batches, O* __restrict__ out, float* __restrict__ partials,
     long long unit, long long n_stretches, long long n_batches, int merge, int F, int c) {
   using IO = Io<T, kVector>;
   constexpr int V = IO::kVec;
@@ -457,7 +476,7 @@ __device__ __forceinline__ void item_in_registers(
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = 0.f;
     sum_in_registers<T, kVector>(col, ld, order, b, e, acc);
-    IO::store(out + r * F + (long long)c * V, acc);
+    Out<O, V>::store(out + r * F + (long long)c * V, acc);
   }
 }
 
@@ -474,12 +493,12 @@ __device__ __forceinline__ void item_in_registers(
 // and no barrier is needed; a stage is refilled one step after it was read.
 // A row's sum is stored when the stream passes its end, in row order, empty
 // rows as zeros.
-template <typename T, int kVpl>
+template <typename T, typename O, int kVpl>
 __device__ __forceinline__ void item_in_ring(const T* __restrict__ vals, long long ld,
                                              const long long* __restrict__ order,
                                              const long long* __restrict__ row_ptr,
                                              const long long* __restrict__ batches,
-                                             T* __restrict__ out, long long unit,
+                                             O* __restrict__ out, long long unit,
                                              long long n_stretches, long long n_batches,
                                              int merge, int F, int c0, uint4* ring, int lane) {
   using IO = Io<T, true>;
@@ -549,7 +568,7 @@ __device__ __forceinline__ void item_in_ring(const T* __restrict__ vals, long lo
 #pragma unroll
       for (int k = 0; k < kVpl; ++k) {
         const long long at = (long long)(c0 + 32 * k) * V;
-        if (active[k] && keep_seg) IO::store(out + (r0 + seg) * F + at, acc[k]);
+        if (active[k] && keep_seg) Out<O, V>::store(out + (r0 + seg) * F + at, acc[k]);
 #pragma unroll
         for (int q = 0; q < V; ++q) acc[k][q] = 0.f;
       }
@@ -586,7 +605,7 @@ __device__ __forceinline__ void item_in_ring(const T* __restrict__ vals, long lo
 // the stream, so no other kernel or memset runs to clear them. kRingOn needs
 // group == 32, the 16-byte path and kRing x 512 bytes of dynamic shared
 // memory a warp.
-template <typename T, bool kVector, bool kRingOn, int kVpl>
+template <typename T, typename O, bool kVector, bool kRingOn, int kVpl>
 __global__ void __launch_bounds__(kFloatThreads)
 segment_sum_float_stretches(const T* __restrict__ vals, long long ld,
                             const long long* __restrict__ order,
@@ -594,7 +613,7 @@ segment_sum_float_stretches(const T* __restrict__ vals, long long ld,
                             const long long* __restrict__ wide_rows,
                             const long long* __restrict__ wide_ptr,
                             const long long* __restrict__ owner,
-                            const long long* __restrict__ batches, T* __restrict__ out,
+                            const long long* __restrict__ batches, O* __restrict__ out,
                             float* __restrict__ partials,
                             unsigned long long* __restrict__ tickets, long long n_stretches,
                             long long n_batches, int merge, long long items, int F, int group,
@@ -618,12 +637,12 @@ segment_sum_float_stretches(const T* __restrict__ vals, long long ld,
     const int tile = (int)(stretch ? item - unit * tiles
                                    : (item - stretch_items) - (unit - n_stretches) * per_unit);
     if (kRingOn && !stretch) {
-      item_in_ring<T, kVpl>(vals, ld, order, row_ptr, batches, out, unit, n_stretches, n_batches,
+      item_in_ring<T, O, kVpl>(vals, ld, order, row_ptr, batches, out, unit, n_stretches, n_batches,
                             merge, F, tile * 32 * kVpl + lane, ring, lane);
     } else {
       const int c = tile * group + (lane & (group - 1));
       if (c < F / Io<T, kVector>::kVec)
-        item_in_registers<T, kVector>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner,
+        item_in_registers<T, O, kVector>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner,
                                       batches, out, partials, unit, n_stretches, n_batches, merge,
                                       F, c);
     }
@@ -641,11 +660,11 @@ segment_sum_float_stretches(const T* __restrict__ vals, long long ld,
 // Each wide row's partials added in stretch order, from 0, and rounded once:
 // a thread a column of F, a warp 32 columns of one row (items (wide row,
 // tile)), kCombineUnroll partials in flight a thread.
-template <typename T>
+template <typename O>
 __global__ void __launch_bounds__(kFloatThreads)
 segment_sum_float_combine(const float* __restrict__ partials,
                           const long long* __restrict__ wide_rows,
-                          const long long* __restrict__ wide_ptr, T* __restrict__ out,
+                          const long long* __restrict__ wide_ptr, O* __restrict__ out,
                           long long items, int F, int tiles) {
   const int lane = threadIdx.x & 31;
   const long long warps = (long long)gridDim.x * (kFloatThreads / 32);
@@ -666,7 +685,7 @@ segment_sum_float_combine(const float* __restrict__ partials,
       for (int u = 0; u < kCombineUnroll; ++u) acc += x[u];
     }
     for (; k < k1; ++k) acc += __ldg(col + k * F);
-    Io<T, false>::store(out + __ldg(wide_rows + w) * F + c, &acc);
+    Out<O, 1>::store(out + __ldg(wide_rows + w) * F + c, &acc);
   }
 }
 
@@ -696,16 +715,16 @@ int resident_blocks(Kernel kernel, int smem, int* cache, cudaError_t* err) {
 // the card keeps resident), taking its items from the ticket counter. Where
 // the items would not fill that grid (a few wide rows alone) a block is one
 // warp, so that the items spread over the SMs.
-template <typename T, bool kVector, bool kRingOn, int kVpl>
+template <typename T, typename O, bool kVector, bool kRingOn, int kVpl>
 cudaError_t launch_stretches(const T* vals, long long ld, const long long* order,
                              const long long* row_ptr, const long long* wide_rows,
                              const long long* wide_ptr, const long long* owner,
-                             const long long* batches, T* out, float* partials,
+                             const long long* batches, O* out, float* partials,
                              unsigned long long* tickets, long long n_stretches,
                              long long n_batches, int merge, long long items, int F, int group,
                              int tiles, int batch_tiles, cudaStream_t s) {
   static int cache[kMaxDevices] = {};
-  auto kernel = segment_sum_float_stretches<T, kVector, kRingOn, kVpl>;
+  auto kernel = segment_sum_float_stretches<T, O, kVector, kRingOn, kVpl>;
   const int warp_smem = kRingOn ? kRing * 32 * 16 : 0;
   cudaError_t err;
   const long long resident = resident_blocks(kernel, warp_smem * (kFloatThreads / 32), cache, &err);
@@ -725,7 +744,7 @@ cudaError_t launch_stretches(const T* vals, long long ld, const long long* order
   return cudaGetLastError();
 }
 
-template <typename T, bool kVector>
+template <typename T, typename O, bool kVector>
 cudaError_t launch_float_path(const void* vals, long long ld, const void* order,
                               const void* row_ptr, const void* wide_rows, const void* wide_ptr,
                               const void* owner, const void* batches, void* out, void* partials,
@@ -753,8 +772,8 @@ cudaError_t launch_float_path(const void* vals, long long ld, const void* order,
   // and arcs: about 8 KB of gathered rows and outputs a warp, which reads kVpl x 512 bytes of
   // each; at most 32 rows
 #define SEGMENT_FLOAT_LAUNCH(RING, VPL, BATCH_TILES)                                              \
-  launch_stretches<T, kVector, RING, VPL>(                                                       \
-      (const T*)vals, ld, od, rp, wr, wp, ow, bt, (T*)out, (float*)partials, tk, n_stretches,    \
+  launch_stretches<T, O, kVector, RING, VPL>(                                                    \
+      (const T*)vals, ld, od, rp, wr, wp, ow, bt, (O*)out, (float*)partials, tk, n_stretches,    \
       n_batches, merge_of(VPL),                                                                  \
       n_stretches * tiles + (n_batches + merge_of(VPL) - 1) / merge_of(VPL) * (BATCH_TILES), F,  \
       group, tiles, BATCH_TILES, s)
@@ -772,13 +791,13 @@ cudaError_t launch_float_path(const void* vals, long long ld, const void* order,
   const int col_tiles = (F + 31) / 32;
   const long long warps = n_wide * col_tiles;
   const long long blocks = (warps + kFloatThreads / 32 - 1) / (kFloatThreads / 32);
-  segment_sum_float_combine<T><<<(unsigned)(blocks < 65535 ? blocks : 65535), kFloatThreads, 0,
-                                 s>>>((const float*)partials, wr, wp, (T*)out, warps, F,
+  segment_sum_float_combine<O><<<(unsigned)(blocks < 65535 ? blocks : 65535), kFloatThreads, 0,
+                                 s>>>((const float*)partials, wr, wp, (O*)out, warps, F,
                                       col_tiles);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch_float(const void* vals, long long ld, const void* order, const void* row_ptr,
                  const void* wide_rows, const void* wide_ptr, const void* owner,
                  const void* batches, void* out, void* partials, void* tickets, long long n,
@@ -794,12 +813,12 @@ int launch_float(const void* vals, long long ld, const void* order, const void* 
                    ((uintptr_t)out & 15) == 0 && ((uintptr_t)partials & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (vec)
-    return (int)launch_float_path<T, true>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner,
-                                           batches, out, partials, tickets, (int)F, n_wide,
-                                           n_stretches, n_batches, s);
-  return (int)launch_float_path<T, false>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner,
-                                          batches, out, partials, tickets, (int)F, n_wide,
-                                          n_stretches, n_batches, s);
+    return (int)launch_float_path<T, O, true>(vals, ld, order, row_ptr, wide_rows, wide_ptr,
+                                              owner, batches, out, partials, tickets, (int)F,
+                                              n_wide, n_stretches, n_batches, s);
+  return (int)launch_float_path<T, O, false>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner,
+                                             batches, out, partials, tickets, (int)F, n_wide,
+                                             n_stretches, n_batches, s);
 }
 
 }  // namespace
@@ -851,9 +870,9 @@ int segment_sum_float_f32(const void* vals, long long ld, const void* order, con
                           const void* batches, void* out, void* partials, void* tickets,
                           long long n, long long F, long long n_wide, long long n_stretches,
                           long long n_batches, long long stretch, void* stream) {
-  return launch_float<float>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner, batches, out,
-                             partials, tickets, n, F, n_wide, n_stretches, n_batches, stretch,
-                             stream);
+  return launch_float<float, float>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner, batches,
+                                    out, partials, tickets, n, F, n_wide, n_stretches, n_batches,
+                                    stretch, stream);
 }
 
 int segment_sum_float_bf16(const void* vals, long long ld, const void* order, const void* row_ptr,
@@ -861,9 +880,25 @@ int segment_sum_float_bf16(const void* vals, long long ld, const void* order, co
                            const void* batches, void* out, void* partials, void* tickets,
                            long long n, long long F, long long n_wide, long long n_stretches,
                            long long n_batches, long long stretch, void* stream) {
-  return launch_float<__nv_bfloat16>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner,
-                                     batches, out, partials, tickets, n, F, n_wide, n_stretches,
-                                     n_batches, stretch, stream);
+  return launch_float<__nv_bfloat16, __nv_bfloat16>(vals, ld, order, row_ptr, wide_rows, wide_ptr,
+                                                    owner, batches, out, partials, tickets, n, F,
+                                                    n_wide, n_stretches, n_batches, stretch,
+                                                    stream);
+}
+
+// As segment_sum_float_bf16, but out (n, F) is float32: the sums before
+// their rounding to bf16, bit for bit the float32 values that
+// segment_sum_float_bf16 rounds (a shard's partial of the GNNs' sharded
+// scatter, which adds the shards' partials before it rounds once).
+int segment_sum_float_bf16_f32(const void* vals, long long ld, const void* order,
+                               const void* row_ptr, const void* wide_rows, const void* wide_ptr,
+                               const void* owner, const void* batches, void* out, void* partials,
+                               void* tickets, long long n, long long F, long long n_wide,
+                               long long n_stretches, long long n_batches, long long stretch,
+                               void* stream) {
+  return launch_float<__nv_bfloat16, float>(vals, ld, order, row_ptr, wide_rows, wide_ptr, owner,
+                                            batches, out, partials, tickets, n, F, n_wide,
+                                            n_stretches, n_batches, stretch, stream);
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

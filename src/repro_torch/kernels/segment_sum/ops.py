@@ -39,6 +39,15 @@ pass and, where some row is wider than a stretch, the pass that adds their
 partials. A layout of ``meta`` ids carries no work table and its ids are not
 range-checked: it serves to count a step's work (``launch/step_cost.py``),
 where the forward returns an empty result.
+
+``segment_sum_float_partial(vals, layout)`` is the same sum left unrounded:
+float32 out of float32 or bf16 values (float64 out of float64 on the CPU),
+the bits that the float form rounds once. A shard's partial of the GNNs'
+sharded scatter is one (``models/gnn/common.py``): the shards' partials are
+added in shard order before the one rounding. On the card bf16 values go
+through the kernel's bf16-in, float32-out entry; it is counted in
+``float_launches`` and booked as ``segment_sum_float`` with
+``float_partial_cost``. Its backward is the gather in ``vals``' dtype.
 """
 
 from __future__ import annotations
@@ -85,9 +94,12 @@ _SYMBOLS = {
                                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-       for t in ("f32", "bf16")},
+       for t in ("f32", "bf16", "bf16_f32")},
 }
 _FLOAT_SYMBOL = {torch.float32: "segment_sum_float_f32", torch.bfloat16: "segment_sum_float_bf16"}
+# float32 out: the unrounded sums of ``segment_sum_float_partial``
+_PARTIAL_SYMBOL = {torch.float32: "segment_sum_float_f32",
+                   torch.bfloat16: "segment_sum_float_bf16_f32"}
 # The float kernel's two int64 ticket counters, one pair a (device, stream),
 # zeroed once: a call leaves them at 0, and calls on one stream never overlap.
 _TICKETS: dict = {}
@@ -136,6 +148,12 @@ def float_cost(E: int, n: int, F: int, itemsize: int) -> tuple[float, float]:
     sums written once. Additions only, so no FLOPs are booked, as no matrix
     product is done."""
     return 0.0, float(E * F * itemsize + 8 * E + 8 * (n + 1) + n * F * itemsize)
+
+
+def float_partial_cost(E: int, n: int, F: int, itemsize: int) -> tuple[float, float]:
+    """``(flops, bytes)`` of one unrounded call: as ``float_cost``, but the
+    n x F sums are written as float32."""
+    return 0.0, float(E * F * itemsize + 8 * E + 8 * (n + 1) + n * F * 4)
 
 
 def float_backward_cost(E: int, n: int, F: int, itemsize: int) -> tuple[float, float]:
@@ -301,19 +319,51 @@ class _SegmentSumFloat(torch.autograd.Function):
         return grad_out.index_select(0, ctx.layout.ids).to(ctx.dtype), None
 
 
-def segment_sum_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
-    """Per-segment sums: vals (E,) or (E, F) in edge order -> (n,) or (n, F)
-    in vals' dtype. Empty segments are 0. Differentiable in ``vals``."""
+class _SegmentSumPartial(torch.autograd.Function):
+    """The unrounded float segment sum with the gather as its backward."""
+
+    @staticmethod
+    def forward(ctx, vals, layout):
+        ctx.layout, ctx.dtype = layout, vals.dtype
+        wide = torch.float64 if vals.dtype == torch.float64 else torch.float32
+        F = vals.shape[1] if vals.dim() == 2 else 1
+        with kernel_call("segment_sum_float", float_partial_cost, vals.shape[0], layout.n, F,
+                         vals.element_size()):
+            if vals.device.type == "cpu":
+                return segment_sum_float_ref(vals.to(wide), layout.ids, layout.n)
+            if vals.device.type == "meta":
+                return vals.new_empty((layout.n, *vals.shape[1:]), dtype=wide)
+            return _launch_float(vals, layout, partial=True)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return grad_out.index_select(0, ctx.layout.ids).to(ctx.dtype), None
+
+
+def _check_float(vals: torch.Tensor, layout: SegmentLayout, name: str) -> None:
     if vals.dim() not in (1, 2) or vals.shape[0] != layout.ids.numel():
         raise ValueError(f"vals must be (E,) or (E, F) with E = {layout.ids.numel()}, got "
                          f"{tuple(vals.shape)}")
     if vals.device != layout.order.device:
         raise ValueError(f"vals on {vals.device} but the layout on {layout.order.device}")
     if vals.device.type not in ("cpu", "cuda", "meta"):
-        raise ValueError(f"segment_sum_float runs on cuda or cpu, not {vals.device}")
+        raise ValueError(f"{name} runs on cuda or cpu, not {vals.device}")
     if vals.device.type == "cuda" and vals.dtype not in _FLOAT_SYMBOL:
         raise ValueError(f"the float segment-sum kernel takes float32 or bfloat16, not {vals.dtype}")
+
+
+def segment_sum_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
+    """Per-segment sums: vals (E,) or (E, F) in edge order -> (n,) or (n, F)
+    in vals' dtype. Empty segments are 0. Differentiable in ``vals``."""
+    _check_float(vals, layout, "segment_sum_float")
     return _SegmentSumFloat.apply(vals, layout)
+
+
+def segment_sum_float_partial(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
+    """``segment_sum_float``'s sums before their rounding: (n,) or (n, F)
+    in float32 (float64 for float64 values). Differentiable in ``vals``."""
+    _check_float(vals, layout, "segment_sum_float_partial")
+    return _SegmentSumPartial.apply(vals, layout)
 
 
 def _tickets(device: torch.device) -> torch.Tensor:
@@ -324,20 +374,22 @@ def _tickets(device: torch.device) -> torch.Tensor:
     return _TICKETS[key]
 
 
-def _launch_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
+def _launch_float(vals: torch.Tensor, layout: SegmentLayout, partial: bool = False) -> torch.Tensor:
     """One call of the float kernel on checked CUDA ``vals``: the stretches'
     and batches' pass and, where ``layout`` has rows wider than a stretch,
     the pass that adds their partials (float32 scratch, one row of F a
-    stretch; the stream's ticket counters, ``_tickets``)."""
+    stretch; the stream's ticket counters, ``_tickets``). With ``partial``
+    the sums are written unrounded, as float32."""
     global float_launches
     v = vals.unsqueeze(1) if vals.dim() == 1 else vals
     E, F = v.shape
     if F == 0:
-        return vals.new_zeros((layout.n, 0))
+        return vals.new_zeros((layout.n, 0), dtype=torch.float32 if partial else vals.dtype)
     if v.stride(1) != 1 or (E > 1 and v.stride(0) < F):
         v = v.contiguous()
     ld = v.stride(0) if E > 1 else F
-    out = torch.empty((layout.n, F), dtype=vals.dtype, device=vals.device)
+    out = torch.empty((layout.n, F), dtype=torch.float32 if partial else vals.dtype,
+                      device=vals.device)
     if layout.n:
         lib = _build.load("segment_sum", _SYMBOLS)
         st = layout.stretches
@@ -345,7 +397,7 @@ def _launch_float(vals: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
                     if st.owner.numel() else None)
         tickets = _tickets(vals.device)
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = getattr(lib, _FLOAT_SYMBOL[vals.dtype])(
+        err = getattr(lib, (_PARTIAL_SYMBOL if partial else _FLOAT_SYMBOL)[vals.dtype])(
             v.data_ptr(), ld, layout.order.data_ptr(), layout.row_ptr.data_ptr(),
             st.rows.data_ptr(), st.ptr.data_ptr(), st.owner.data_ptr(), st.batches.data_ptr(),
             out.data_ptr(), partials.data_ptr() if partials is not None else None,

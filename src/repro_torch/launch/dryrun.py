@@ -29,8 +29,10 @@ the card is recorded so and not run. ``--run`` with no card fails.
 reference's 16x16 and 2x16x16 meshes: the k-core cell runs its sharded
 superstep over that many shards of one card (``launch.mesh``), with the
 collectives' bytes from ``distribution.collectives``; an LM, GNN
-or DIN cell on a pod mesh fails, naming ROADMAP.md Queue A item 12 (their
-sharding rules are not ported). Records go to ``experiments/dryrun_torch/``
+or DIN cell on a pod mesh fails, naming ROADMAP.md Queue A item 12b (the
+two-axis mesh and the pod-mesh dry-run; the GNN family's flat sharding runs
+on one card's shards, ``models/gnn/common.py``, but is not counted on the
+pod meshes). Records go to ``experiments/dryrun_torch/``
 (listed in ``.gitignore``), one JSON file a cell.
 """
 
@@ -52,7 +54,7 @@ from repro_torch.launch.step_cost import StepCounter
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESHES = ("1", "pod1", "pod2")
-_MESH = "ROADMAP.md Queue A item 12 (distribution/sharding.py)"
+_MESH = "ROADMAP.md Queue A item 12b (the two-axis mesh and the pod-mesh dry-run)"
 
 # long_500k needs sub-quadratic attention: only mixtral (SWA) runs it.
 SKIP = {
@@ -111,7 +113,7 @@ def build_cell(arch: str, shape_name: str, mesh=None, *, device="meta", batch: i
     """The cell's step and arguments on ``device`` (``meta``: shapes only;
     else random weights and data from ``seed``), at the cell's global shape
     or with its batch cut to ``batch``. ``cfg`` replaces the registry's
-    config (``launch/hillclimb.py``'s variants). A mesh raises, naming item 12."""
+    config (``launch/hillclimb.py``'s variants). A mesh raises, naming item 12b."""
     if mesh is not None:
         raise NotImplementedError(f"{arch} x {shape_name} on a pod mesh is not ported yet: {_MESH}")
     cfg = get_config(arch) if cfg is None else cfg

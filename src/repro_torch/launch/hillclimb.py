@@ -13,7 +13,7 @@ function for the call. Each result has the reference's keys: the
 term, ``mem_GB`` (the arguments and outputs: the temporaries are not
 measured on ``meta``) and ``compile_s`` (here the wall of the count).
 ``din_fullshard`` needs DIN on a mesh and fails, naming ROADMAP.md Queue A
-item 12.
+item 12b.
 """
 
 from __future__ import annotations

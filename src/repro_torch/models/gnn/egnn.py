@@ -19,9 +19,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.models.gnn.common import (dst_layout, positions_for, graph_layout, layernorm,
-                                           mlp_apply, mlp_init, mlp_spec,
-                                           scatter_sum)
+from repro_torch.models.gnn.common import (arc_ids, dst_layout, gather_rows_multi, graph_layout,
+                                           layernorm, mlp_apply, mlp_init, mlp_spec,
+                                           positions_for, scatter_sum)
 from repro_torch.platform import resolve_device
 
 
@@ -65,19 +65,20 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, return_pos: bool 
                     layout=None):
     """(N, d_hidden) embeddings, and the updated (N, 3) positions with
     ``return_pos``; ``layout`` is ``dst_layout(batch)``, built here when not
-    given."""
+    given, or on a flat mesh the batch's ``MeshArcs``."""
     layout = layout if layout is not None else dst_layout(batch)
     h = params["embed_species"].index_select(0, batch["species"])
     if params.get("proj_in") is not None and "feats" in batch:
         h = h + mlp_apply(params["proj_in"], batch["feats"].to(h.dtype))
     x = positions_for(h, batch["positions"]).to(h.dtype)
-    src, dst = batch["src"], batch["dst"]
+    src, dst = arc_ids(batch, layout)
     emask = batch["edge_mask"].to(h.dtype)
     for bp in params["blocks"]:
-        rel = x.index_select(0, dst) - x.index_select(0, src)
+        x_dst, x_src = gather_rows_multi(x, (dst, src))
+        rel = x_dst - x_src
         d2 = torch.sum(rel * rel, dim=-1, keepdim=True)
-        m = mlp_apply(bp["phi_e"], torch.cat(
-            [h.index_select(0, dst), h.index_select(0, src), d2], dim=-1), final_act=True)
+        m = mlp_apply(bp["phi_e"], torch.cat([*gather_rows_multi(h, (dst, src)), d2], dim=-1),
+                      final_act=True)
         m = m * emask[:, None]
         # coordinate update (normalized rel for stability)
         wx = mlp_apply(bp["phi_x"], m)

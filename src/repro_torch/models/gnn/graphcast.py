@@ -38,7 +38,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.models.gnn.common import (compute_dtype, dst_layout, layernorm, mlp_apply,
+from repro_torch.models.gnn.common import (arc_ids, compute_dtype, constrain_rows, dst_layout,
+                                           gather_rows, gather_rows_multi, layernorm, mlp_apply,
                                            mlp_init, mlp_spec, scatter_sum, segment_layout)
 from repro_torch.platform import resolve_device
 
@@ -53,18 +54,27 @@ def _block_init(gen: torch.Generator, d: int, device) -> dict:
 
 
 def _interaction(bp, h_src, h_dst, e, src, dst, layout, emask):
-    """One GraphNet block. Returns (new_h_dst, new_e). ``emask`` None means
-    every arc is real (the weather graph), where the reference multiplies by
-    ones."""
-    eh = torch.cat([e, h_src.index_select(0, src), h_dst.index_select(0, dst)], dim=-1)
+    """One GraphNet block. Returns (new_h_dst, new_e). ``src``/``dst`` are
+    ids, or on a flat mesh their ``MeshLayout``s (``common.arc_ids``).
+    ``emask`` None means every arc is real (the weather graph), where the
+    reference multiplies by ones."""
+    if h_src is h_dst:
+        # generic mode: one broadcast serves both ends
+        hs, hd = gather_rows_multi(h_src, (src, dst))
+    else:
+        hs, hd = gather_rows(h_src, src), gather_rows(h_dst, dst)
+    eh = torch.cat([e, hs, hd], dim=-1)
+    del hs, hd
     e_new = e + mlp_apply(bp["edge_mlp"], eh)
     del eh
     if emask is not None:
         e_new = e_new * emask[:, None]
-    agg = scatter_sum(e_new, layout)
+    e_new = constrain_rows(e_new)
+    agg = constrain_rows(scatter_sum(e_new, layout))
     h_new = h_dst + mlp_apply(bp["node_mlp"], torch.cat([h_dst, agg], dim=-1))
     e_out = layernorm(e_new)
-    return layernorm(h_new), (e_out if emask is None else e_out * emask[:, None])
+    return constrain_rows(layernorm(h_new)), \
+        constrain_rows(e_out if emask is None else e_out * emask[:, None])
 
 
 def _processor_block(fn, *args):
@@ -103,7 +113,8 @@ def init_params(cfg: GNNConfig, seed: int = 0, d_in: int | None = None, device=N
 
 def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> torch.Tensor:
     """(N, d_hidden) in bf16 (float64 for float64 parameters); ``layout`` is
-    ``dst_layout(batch)``, built here when not given."""
+    ``dst_layout(batch)``, built here when not given, or on a flat mesh the
+    batch's ``MeshArcs``."""
     cd = compute_dtype(params["edge_embed"])
     layout = layout if layout is not None else dst_layout(batch)
     feats = batch.get("feats")
@@ -112,8 +123,8 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> t
         feats = batch["species"].long()[:, None] == torch.arange(cfg.d_hidden,
                                                                   device=batch["species"].device)
     h = mlp_apply(params["encode"], feats.to(cd))
-    src, dst = batch["src"], batch["dst"]
-    e = params["edge_embed"].to(cd).expand(src.shape[0], cfg.d_hidden)
+    src, dst = arc_ids(batch, layout)
+    e = params["edge_embed"].to(cd).expand(batch["src"].shape[0], cfg.d_hidden)
     emask = batch["edge_mask"].to(h.dtype)
     for bp in params["blocks"]:
         h, e = _processor_block(

@@ -29,9 +29,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.models.gnn.common import (compute_dtype, bessel_rbf, positions_for,
-                                           graph_layout, mlp_apply, mlp_init, mlp_spec,
-                                           scatter_sum, segment_layout)
+from repro_torch.models.gnn.common import (MeshArcs, arc_ids, bessel_rbf, compute_dtype,
+                                           constrain_rows, flat_mesh, gather_rows,
+                                           gather_rows_multi, graph_layout, mlp_apply, mlp_init,
+                                           mlp_spec, positions_for, scatter_sum, segment_layout)
 from repro_torch.platform import resolve_device
 
 CHUNK_ARCS = 2_000_000     # the reference's single-device chunking threshold
@@ -82,11 +83,15 @@ def init_params(cfg: GNNConfig, seed: int = 0, d_in: int | None = None, device=N
 
 
 def n_chunks_for(E: int) -> int:
-    """The reference's edge chunking on one device: halve the chunks until
-    each holds at most 2,000,000 arcs, then back off until E divides into
-    512-aligned chunks (an unpadded E falls back to one chunk)."""
+    """The reference's edge chunking: on one device (no flat mesh set),
+    halve the chunks until each holds at most 2,000,000 arcs, then back off
+    until E divides into 512-aligned chunks (an unpadded E falls back to one
+    chunk). Under a mesh there is one chunk, as the reference's
+    ``single_dev`` rule has it: the sharded scatter already keeps a shard's
+    slice at E/D arcs."""
+    single_dev = flat_mesh() is None
     n_chunks = 1
-    while E // n_chunks > CHUNK_ARCS:
+    while single_dev and E // n_chunks > CHUNK_ARCS:
         n_chunks *= 2
     while n_chunks > 1 and (E % n_chunks or (E // n_chunks) % 512):
         n_chunks //= 2
@@ -124,7 +129,8 @@ def _invariants(a0, a1, a2) -> torch.Tensor:
 
 def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> torch.Tensor:
     """(N, C) in bf16 (float64 for float64 parameters); ``layout`` is
-    ``edge_layouts(batch)``, one per chunk, built here when not given."""
+    ``edge_layouts(batch)``, one per chunk, built here when not given, or on
+    a flat mesh the one-chunk list of the batch's ``MeshArcs``."""
     p = cfg.params
     n = batch["species"].shape[0]
     cd = compute_dtype(params["embed_species"])
@@ -134,8 +140,10 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> t
         h = h + mlp_apply(params["proj_in"], batch["feats"].to(h.dtype))
 
     src, dst = batch["src"], batch["dst"]
-    pos = positions_for(h, batch["positions"])
-    rel = pos.index_select(0, dst) - pos.index_select(0, src)
+    pos_dst, pos_src = gather_rows_multi(positions_for(h, batch["positions"]),
+                                         arc_ids(batch, layouts[0])[::-1])
+    rel = pos_dst - pos_src
+    del pos_dst, pos_src
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     rhat = rel / dist[:, None]
     del rel
@@ -161,7 +169,7 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> t
             sl = slice(i * Ec, (i + 1) * Ec)
             radial = mlp_apply(radial_w, rbf[sl].to(hw_.dtype)) * emask[sl][:, None]
             r0, r1, r2 = radial.split(C, dim=-1)
-            hsrc = hw_.index_select(0, src[sl])                   # (Ec, C)
+            hsrc = gather_rows(hw_, lay.src if isinstance(lay, MeshArcs) else src[sl])  # (Ec, C)
 
             def messages():
                 yield r0 * hsrc
@@ -178,7 +186,7 @@ def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> t
             if torch.is_grad_enabled():
                 s0, s1, s2 = checkpoint(chunk, hw, bp["radial"], i, lay, use_reentrant=False,
                                         preserve_rng_state=False)
-                a0, a1, a2 = a0 + s0, a1 + s1, a2 + s2
+                a0, a1, a2 = (constrain_rows(a + s_) for a, s_ in ((a0, s0), (a1, s1), (a2, s2)))
                 del s0, s1, s2
             else:
                 chunk(hw, bp["radial"], i, lay, acc=(a0, a1, a2))

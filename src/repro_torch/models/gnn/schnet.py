@@ -12,9 +12,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.models.gnn.common import (dst_layout, gaussian_rbf, positions_for,
-                                           graph_layout, mlp_apply, mlp_init, mlp_spec,
-                                           scatter_sum)
+from repro_torch.models.gnn.common import (arc_ids, dst_layout, gather_rows, gather_rows_multi,
+                                           gaussian_rbf, graph_layout, mlp_apply, mlp_init,
+                                           mlp_spec, positions_for, scatter_sum)
 from repro_torch.platform import resolve_device
 
 
@@ -49,22 +49,22 @@ def init_params(cfg: GNNConfig, seed: int = 0, d_in: int | None = None, device=N
 
 def node_embeddings(params: dict, cfg: GNNConfig, batch: dict, layout=None) -> torch.Tensor:
     """(N, d_hidden) embeddings; ``layout`` is ``dst_layout(batch)``, built
-    here when not given."""
+    here when not given, or on a flat mesh the batch's ``MeshArcs``."""
     p = cfg.params
     layout = layout if layout is not None else dst_layout(batch)
-    src, dst = batch["src"], batch["dst"]
+    src, dst = arc_ids(batch, layout)
     h = params["embed_species"].index_select(0, batch["species"])
     if params.get("proj_in") is not None and "feats" in batch:
         h = h + mlp_apply(params["proj_in"], batch["feats"].to(h.dtype))
-    pos = positions_for(h, batch["positions"])
-    rel = pos.index_select(0, dst) - pos.index_select(0, src)
+    pos_dst, pos_src = gather_rows_multi(positions_for(h, batch["positions"]), (dst, src))
+    rel = pos_dst - pos_src
     dist = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     rbf = gaussian_rbf(dist, p["n_rbf"], p["cutoff"]).to(h.dtype)
     emask = batch["edge_mask"][:, None].to(h.dtype)
     for bp in params["blocks"]:
         x = mlp_apply(bp["in2f"], h)
         w = mlp_apply(bp["filter"], rbf) * emask
-        msg = x.index_select(0, src) * w
+        msg = gather_rows(x, src) * w
         h = h + mlp_apply(bp["out"], scatter_sum(msg, layout))
     return h
 

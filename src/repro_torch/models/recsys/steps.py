@@ -5,8 +5,8 @@ Batches are dicts of int32 tensors keyed as the reference's. ``synth_batch``
 makes the same numpy calls in the same order as the reference's, so a seed
 gives numpy arrays equal to its, array for array; ``batch_to`` moves them
 to a device. The reference's ``param_specs`` and ``build_step`` place the
-step on a JAX mesh through ``distribution/sharding.py``; they wait for that
-module (ROADMAP.md Queue A item 12).
+step on a JAX mesh through ``distribution/sharding.py``; they wait for its
+DIN rules on a two-axis mesh (ROADMAP.md Queue A item 12b).
 """
 
 from __future__ import annotations

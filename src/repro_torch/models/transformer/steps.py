@@ -11,10 +11,10 @@ warmup=100, total=total_steps)``. ``build_*`` return ``(step_fn, specs,
 None, None)`` as the reference does without a mesh; ``specs`` maps each
 input to ``(shape, dtype)`` (a windowed model's decode cache capped at the
 window). A mesh raises ``NotImplementedError``
-(ROADMAP.md Queue A item 12). ``param_shapes`` and ``opt_shapes`` are the
-parameter and AdamW-state trees as ``meta`` tensors, for
-``launch/dryrun.py``; ``opt_specs``, the state's sharding specs, waits for
-the mesh (item 12).
+(ROADMAP.md Queue A item 12b, the two-axis mesh). ``param_shapes`` and
+``opt_shapes`` are the parameter and AdamW-state trees as ``meta`` tensors,
+for ``launch/dryrun.py``; ``opt_specs``, the state's sharding specs, waits
+for that mesh (item 12b).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from repro_torch.models.transformer import model as M
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_warmup
 from repro_torch.tree import map_tree
 
-_MESH = "ROADMAP.md Queue A item 12 (distribution/sharding.py)"
+_MESH = "ROADMAP.md Queue A item 12b (distribution/sharding.py's LM rules)"
 
 
 def _no_mesh(mesh) -> None:

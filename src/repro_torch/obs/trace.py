@@ -18,6 +18,13 @@ Design constraints, in order:
   3. **Thread-safe.** Spans nest per thread (a ``threading.local`` stack);
      the finished-event list is lock-protected.
 
+Phase spans may tile their parent: a span opened with ``start_ns`` (the
+previous phase's ``end_ns``, or the parent's ``start_ns``) starts where
+that one ended, and a parent closed with ``end_at`` (its last phase's
+``end_ns``) ends where it did, so no stretch of the parent lies outside its
+children however the thread is scheduled between them (the streaming
+engine's ``batch``).
+
 Export is the Chrome ``trace_event`` JSON array-of-complete-events format
 (``ph: "X"``), loadable in Perfetto or ``chrome://tracing``. Timestamps come
 from ``time.perf_counter_ns`` (monotonic), reported in microseconds. Spans
@@ -44,6 +51,7 @@ class _NullSpan:
     """Shared no-op span returned while tracing is disabled."""
 
     __slots__ = ()
+    start_ns = end_ns = None
 
     def __enter__(self) -> "_NullSpan":
         return self
@@ -54,36 +62,51 @@ class _NullSpan:
     def set(self, **attrs) -> "_NullSpan":
         return self
 
+    def end_at(self, t_ns) -> None:
+        pass
+
 
 NULL_SPAN = _NullSpan()
 
 
 class Span:
-    """One live span: a context manager that records a complete event."""
+    """One live span: a context manager that records a complete event.
+    ``start_ns`` is its start on ``time.perf_counter_ns``'s clock (given, or
+    the clock at entry) and ``end_ns`` its end once it has closed (the clock
+    at exit, or the time ``end_at`` gave)."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "start_ns", "end_ns")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict, start_ns: int | None = None):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
+        self.start_ns = start_ns
+        self.end_ns = None
 
     def set(self, **attrs) -> "Span":
         """Attach attributes to this span (shows up under ``args``)."""
         self.attrs.update(attrs)
         return self
 
+    def end_at(self, t_ns: int | None) -> None:
+        """Close at ``t_ns`` (a time already passed, such as the end of
+        this span's last child) instead of the clock at exit."""
+        self.end_ns = t_ns
+
     def __enter__(self) -> "Span":
         self._tracer._stack().append(self)
-        self._t0 = time.perf_counter_ns()
+        if self.start_ns is None:
+            self.start_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
-        t1 = time.perf_counter_ns()
+        if self.end_ns is None:
+            self.end_ns = time.perf_counter_ns()
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
-        self._tracer._emit(self.name, self._t0, t1 - self._t0, self.attrs)
+        self._tracer._emit(self.name, self.start_ns, self.end_ns - self.start_ns, self.attrs)
         return False
 
 
@@ -134,11 +157,13 @@ class Tracer:
             self._events.append(ev)
 
     # ------------------------------------------------------------------ #
-    def span(self, name: str, **attrs):
-        """Context manager for one nested span (no-op while disabled)."""
+    def span(self, name: str, start_ns: int | None = None, **attrs):
+        """Context manager for one nested span (no-op while disabled),
+        starting at ``start_ns`` where given (the end of the sibling before
+        it, or its parent's start, so that phase spans tile their parent)."""
         if not self._enabled:
             return NULL_SPAN
-        return Span(self, name, attrs)
+        return Span(self, name, attrs, start_ns)
 
     def current(self) -> Span | None:
         """The innermost open span on this thread, if any."""

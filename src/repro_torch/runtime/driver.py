@@ -17,7 +17,7 @@ reference's ``(params, opt_state)`` tuple is the list ``[params,
 opt_state]`` here. A tuple is refused, since ``tree.leaves`` takes it as one
 leaf; a list walks as ``jax.tree`` walks the tuple, so checkpoints keep the
 reference's leaf order and cross between the packages both ways. There is
-no ``state_shardings`` (no mesh; ROADMAP.md Queue A item 12).
+no ``state_shardings`` (no mesh; ROADMAP.md Queue A item 12b).
 """
 
 from __future__ import annotations

@@ -498,7 +498,7 @@ class StreamingKCoreEngine:
         ``converge_s`` / ``reconstruct_s``.
         """
         with _trace.span("batch", batch_id=self.batches_applied) as bsp:
-            res = self._apply_batch_body(batch)
+            res, end_ns = self._apply_batch_body(batch, bsp.start_ns)
             bsp.set(mode=res.mode, rounds=res.rounds,
                     messages=res.stats.total_messages,
                     converged=res.converged,
@@ -506,13 +506,21 @@ class StreamingKCoreEngine:
                     region=res.region_size,
                     recompiles=res.recompiles,
                     compile_s=round(res.compile_s, 6))
+            bsp.end_at(end_ns)
         return res
 
-    def _apply_batch_body(self, batch: EdgeBatch) -> BatchResult:
+    def _apply_batch_body(self, batch: EdgeBatch, start_ns) -> tuple:
+        """The batch's phases: ``(result, end_ns)``, the last phase span's
+        end. The four phase spans tile the batch span (``obs/trace.py``):
+        each starts where the one before it ended, the first at the batch's
+        ``start_ns``, and the batch ends at ``end_ns``. The host work between
+        phases counts to the phase after it, so no stretch of the batch lies
+        outside its phases however the thread is scheduled (a preemption, or
+        another thread taking the interpreter between two phases)."""
         builds0, bsecs0 = _build.build_count(), _build.build_seconds()
         dev = self.device
         t0 = time.perf_counter()
-        with _trace.span("csr-patch"):
+        with _trace.span("csr-patch", start_ns=start_ns) as psp:
             delta = self._csr.apply_batch(batch)
         patch_s = time.perf_counter() - t0
         self._graph_cache = None
@@ -522,7 +530,7 @@ class StreamingKCoreEngine:
         reads = 0
 
         t_seed = time.perf_counter()
-        with _trace.span("seed") as ssp:
+        with _trace.span("seed", start_ns=psp.end_ns) as ssp:
             old_core_ext = np.zeros(n, np.int64)
             old_core_ext[: self.core.shape[0]] = self.core
             seed_choice = choose_seed(delta.inserted, csr.deg, old_core_ext,
@@ -584,7 +592,7 @@ class StreamingKCoreEngine:
         n_iters = self._n_iters_hwm = max(n_iters, self._n_iters_hwm)
 
         t_conv = time.perf_counter()
-        with _trace.span("converge", mode=mode):
+        with _trace.span("converge", start_ns=ssp.end_ns, mode=mode) as csp:
             if mode in ("fused", "fused_sharded"):
                 if active.any():
                     if mode == "fused":
@@ -640,7 +648,7 @@ class StreamingKCoreEngine:
         converge_s = time.perf_counter() - t_conv
 
         t_rec = time.perf_counter()
-        with _trace.span("host-reconstruct"):
+        with _trace.span("host-reconstruct", start_ns=csp.end_ns) as hsp:
             stats = MessageStats(
                 messages_per_round=np.asarray(msgs, np.int64),
                 active_per_round=np.asarray(actives[: len(msgs)], np.int64),
@@ -654,18 +662,19 @@ class StreamingKCoreEngine:
                 rec.end_run(converged=converged,
                             messages=int(stats.total_messages))
             reconstruct_s = time.perf_counter() - t_rec
-            return BatchResult(core=core, rounds=rounds, converged=converged,
-                               stats=stats, delta=delta,
-                               region_size=int(region.sum()),
-                               seed_changed=int(seed_changed.sum()),
-                               mode=mode, patch_s=patch_s,
-                               seed_s=seed_s, converge_s=converge_s,
-                               reconstruct_s=reconstruct_s,
-                               seed_strategy=seed_choice.strategy,
-                               seed_est_passes=seed_choice.est_passes,
-                               recompiles=_build.build_count() - builds0,
-                               compile_s=_build.build_seconds() - bsecs0,
-                               csr_compactions=int(csr.compactions),
-                               csr_dead_frac=csr.dead / cap_slots,
-                               csr_occupancy=2 * csr.m / cap_slots,
-                               stage_s=stage_s, flag_reads=reads)
+            res = BatchResult(core=core, rounds=rounds, converged=converged,
+                              stats=stats, delta=delta,
+                              region_size=int(region.sum()),
+                              seed_changed=int(seed_changed.sum()),
+                              mode=mode, patch_s=patch_s,
+                              seed_s=seed_s, converge_s=converge_s,
+                              reconstruct_s=reconstruct_s,
+                              seed_strategy=seed_choice.strategy,
+                              seed_est_passes=seed_choice.est_passes,
+                              recompiles=_build.build_count() - builds0,
+                              compile_s=_build.build_seconds() - bsecs0,
+                              csr_compactions=int(csr.compactions),
+                              csr_dead_frac=csr.dead / cap_slots,
+                              csr_occupancy=2 * csr.m / cap_slots,
+                              stage_s=stage_s, flag_reads=reads)
+        return res, hsp.end_ns

@@ -250,11 +250,19 @@ def test_plain_scatter_route_and_radial_bases():
 
 
 def test_no_mesh_yet():
+    """Without a mesh nothing is sharded or counted; a mesh must be a
+    ``distribution.compat`` one (the mesh path: tests/test_torch_gnn_mesh.py)."""
     PC.set_flat_sharding(None, None)
+    PC.reset_branches()
     x = torch.ones(3)
-    assert PC.constrain_rows(x) is x
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12"):
+    assert PC.constrain_rows(x) is x and PC.flat_mesh() is None
+    lay = PC.segment_layout(np.arange(5000) % 7, 7)
+    PC.scatter_sum(torch.ones(5000, 2), lay)
+    PC.gather_rows(x, torch.tensor([0, 2]))
+    assert PC.BRANCHES == {op: {"sharded": 0, "unsharded": 0} for op in ("scatter", "gather")}
+    with pytest.raises(TypeError, match="compat Mesh"):
         PC.set_flat_sharding(object(), ("data",))
+    assert PC.flat_mesh() is None
 
 
 # ------------------------------ models ------------------------------------ #

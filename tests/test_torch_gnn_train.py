@@ -375,13 +375,3 @@ def test_build_train_without_a_mesh_has_the_reference_specs(arch, shape):
     assert leaves(stacked) == want
     assert len(specs["_params"]["blocks"]) == cfg.n_layers
 
-
-def test_build_train_refuses_a_mesh():
-    from repro_torch.distribution import compat
-
-    mesh = compat.make_mesh((2,), ("data",), device="cpu")
-    spec = GNN_SHAPES[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12"):
-        PS.build_train(get_smoke("schnet"), spec, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 12"):
-        PS.build_step(get_smoke("graphcast"), spec, mesh)

@@ -699,6 +699,68 @@ def test_float_segment_sum_kernel_at_the_stretch_boundaries(cuda, dtype, F):
     _hold_float_kernel(cuda, vals, ids, len(widths) + 3)
 
 
+@pytest.mark.parametrize("F", [1, 3, 64, 512, 1152])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_float_partial_kernel_is_the_unrounded_float_form(cuda, dtype, F):
+    """``segment_sum_float_partial`` on the card: float32 out, bit-equal to
+    its plain version on the CPU, rounded once bit for bit the float form's
+    output, rows wider than a stretch among them; one launch a call."""
+    S = sk.STRETCH
+    ids = np.concatenate([np.random.default_rng(F).integers(0, 1_500, 20_000),
+                          np.full(3 * S + 5, 1_550)])
+    vals, ids = _float_case(cuda, ids.size, 1, F, dtype, F, ids=ids)
+    lay = sk.segment_layout(ids, 1_600, device=cuda)
+    v = vals.to(cuda)
+    before = sk.float_launches
+    got = sk.segment_sum_float_partial(v, lay)
+    torch.cuda.synchronize()
+    assert sk.float_launches == before + 1 and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), sk.segment_sum_float_partial(vals, sk.segment_layout(ids, 1_600)))
+    assert torch.equal(got.to(dtype), sk.segment_sum_float(v, lay))
+    assert not sk._tickets(v.device).any()
+
+
+def test_gnn_mesh_step_on_the_card_matches_the_cpu(cuda):
+    """GraphCast (SMOKE) on a 4-shard mesh of the card: the same step on a
+    4-shard mesh of the CPU and the one-device step, by the bf16 rule
+    against a float64 step; a float kernel launch a shard for each scatter
+    and for each index of each gather's backward."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distribution import compat
+    from repro_torch.models.gnn import common as PC, steps as PS
+
+    cfg = get_smoke("graphcast")
+    g = generators.erdos_renyi(1_200, 2_600, seed=0)
+    batch = PC.batch_from_graph(g, 12, 5, seed=1)
+    arcs = batch["src"].shape[0] - batch["src"].shape[0] % 4
+    batch = dict(batch, src=batch["src"][:arcs], dst=batch["dst"][:arcs],
+                 edge_mask=batch["edge_mask"][:arcs])
+    shape = ShapeSpec("full_graph_sm", "full_graph", {"n_nodes": 1_200, "n_edges": arcs // 2,
+                                                      "d_feat": 12, "n_classes": 5})
+    params = PS.init_params(cfg, 0, d_in=12, n_classes=5, device="cpu")
+    outs = []
+    try:
+        for dev in (cuda, "cpu"):
+            mesh = compat.make_mesh((4,), ("data",), device=dev)
+            step, _, _, _ = PS.build_train(cfg, shape, mesh)
+            before = sk.float_launches
+            p = PC.params_to(params, mesh.device)
+            outs.append(step(p, adamw_init(p), PS.stage_batch(batch, mesh),
+                             **PS.mesh_layouts(cfg, shape, batch, mesh)))
+            if dev is cuda:
+                torch.cuda.synchronize()
+                # per layer: 4 partials forward, 4 recomputed, 8 in the gather's backward
+                assert sk.float_launches - before == cfg.n_layers * 16
+    finally:
+        PC.set_flat_sharding(None, None)
+    PS.build_train(cfg, shape, None)
+    p64 = PC.params_to(params, dtype=torch.float64)
+    with PC.plain_scatter():
+        f64 = PS.make_train_step(cfg, shape)(p64, adamw_init(p64), PC.batch_to(batch, "cpu"))
+    for pick in (lambda o: o[2]["loss"], lambda o: o[2]["grad_norm"], lambda o: leaves(o[1]["m"])):
+        assert checks.hold_bf16(*(PC.params_to(pick(o), "cpu") for o in (*outs, f64)))["ok"]
+
+
 def test_float_segment_sum_kernel_refuses_what_it_does_not_take(cuda):
     lay = sk.segment_layout(np.array([0, 1, 1]), 2, device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
